@@ -1,0 +1,68 @@
+"""Nested-ensemble inference engine.
+
+Counterpart of ``ladine_tpu/infer/engine.py::nested_ensemble_sample``. The
+JAX package vmaps over members and MC trials; here both axes are written
+out: the reverse chain runs on y of shape (M, K*B, C), rows ordered
+(trial, image), so each step is one eps call, three kernel launches, for
+the whole ensemble. The encoder features are computed once per (member,
+image) and repeated over the trials for lin1's gate, and the timestep gates
+and BatchNorms are folded once per chain for every timestep.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ladine_tpu_torch.kernels.fused_eps import fold_table
+from ladine_tpu_torch.models.conditional import ConditionalModel
+from ladine_tpu_torch.ops.diffusion import ddim_sample_loop, p_sample_loop
+from ladine_tpu_torch.ops.schedules import DiffusionSchedule
+
+
+def nested_ensemble_sample(
+    model: ConditionalModel,
+    x_flat: torch.Tensor,
+    y0_hat_members: torch.Tensor,
+    sched: DiffusionSchedule,
+    mc_trials: int = 20,
+    tau: Optional[Sequence[int]] = None,
+    eta: float = 0.0,
+    noise_prior: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """All members' MC samples in one chain: (M, mc_trials, B, y_dim).
+
+    Args:
+        x_flat: (B, data_dim) flattened images.
+        y0_hat_members: (M, B, y_dim) softmaxed guidance per member, both
+            the eps conditioning and (unless ``noise_prior``) the prior mean.
+        tau: strided timestep subsequence for the DDIM sampler; None = the
+            full ancestral chain.
+        noise: optional injected draws, (n_draws, M, mc_trials, B, y_dim)
+            with n_draws = T (ancestral) or len(tau) (DDIM).
+    """
+    m, b, c = y0_hat_members.shape
+    k = mc_trials
+    f = model.encode(x_flat)  # (M, B, F)
+    # materialized (the kernel reads it as lin1's gate): at B = 1 the reshape
+    # of the expanded view would stay a stride-0 view
+    f_rows = f.unsqueeze(1).expand(m, k, b, f.shape[-1]).reshape(m, k * b, f.shape[-1]).contiguous()
+    yhat_rows = y0_hat_members.unsqueeze(1).expand(m, k, b, c).reshape(m, k * b, c)
+    y_T_mean = torch.zeros_like(yhat_rows) if noise_prior else yhat_rows
+    if noise is not None:
+        noise = noise.reshape(noise.shape[0], m, k * b, c)
+
+    n_steps = model.lin1.embed.shape[1]
+    table = fold_table(model, torch.arange(n_steps, device=f.device))
+
+    def eps_fn(y, t):
+        return model.eps(f_rows, y, t, yhat_rows, table)
+
+    if tau is None:
+        out = p_sample_loop(eps_fn, y_T_mean, sched, generator, noise)
+    else:
+        out = ddim_sample_loop(eps_fn, y_T_mean, sched, generator, tau, eta, noise)
+    return out.reshape(m, k, b, c)

@@ -1,0 +1,179 @@
+"""CARD-style conditional diffusion math on tensors.
+
+Counterpart of ``ladine_tpu/ops/diffusion.py``. The JAX ``lax.scan`` over
+timesteps becomes a Python loop; ``eps_fn(y, t)`` receives ``t`` as a Python
+int, so a schedule lookup never waits on the device.
+
+Noise comes from a ``torch.Generator`` or, when given, from an injected
+``noise`` tensor whose leading axis is the draw index: entry 0 is the y_T
+draw and entry i the draw of the i-th reverse step. The tests inject the
+exact ``jax.random`` draws of the JAX sampler this way. Without injected
+noise all draws are made in one call before the loop.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ladine_tpu_torch.ops.schedules import DiffusionSchedule
+
+EpsFn = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def extract(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
+    """Gather schedule entries at timesteps ``t``, shaped to broadcast
+    against an ndim-dimensional batch tensor."""
+    t = torch.as_tensor(t, device=arr.device)
+    out = arr[t]
+    return out.reshape(tuple(t.shape) + (1,) * (ndim - t.dim()))
+
+
+def q_sample(
+    y0: torch.Tensor,
+    y0_hat: torch.Tensor,
+    sched: DiffusionSchedule,
+    t,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """``y_t = sqrt(ab_t) y_0 + (1 - sqrt(ab_t)) y_0_hat + sqrt(1-ab_t) eps``"""
+    sab = extract(sched.alphas_bar_sqrt, t, y0.dim())
+    somab = extract(sched.one_minus_alphas_bar_sqrt, t, y0.dim())
+    return sab * y0 + (1.0 - sab) * y0_hat + somab * noise
+
+
+class PSampleCoeffs(NamedTuple):
+    """Reverse-step coefficients at timestep(s) t >= 1."""
+
+    gamma0: torch.Tensor
+    gamma1: torch.Tensor
+    gamma2: torch.Tensor
+    beta_hat_sqrt: torch.Tensor
+    alpha_bar_sqrt: torch.Tensor  # sqrt(ab_t)
+    one_minus_alpha_bar_sqrt: torch.Tensor  # sqrt(1-ab_t)
+
+
+def p_sample_coefficients(sched: DiffusionSchedule, t) -> PSampleCoeffs:
+    """gamma coefficients of the CARD posterior mean, for an int ``t`` or a
+    tensor of timesteps. ``sqrt(ab_t)`` is recomputed as
+    ``sqrt(1 - somab_t^2)``, as the reference does, so float32 rounding
+    matches it."""
+    t = torch.as_tensor(t, device=sched.device)
+    alpha_t = sched.alphas[t]
+    somab_t = sched.one_minus_alphas_bar_sqrt[t]
+    somab_tm1 = sched.one_minus_alphas_bar_sqrt[t - 1]
+    sab_t = torch.sqrt(1.0 - somab_t**2)
+    sab_tm1 = torch.sqrt(1.0 - somab_tm1**2)
+    denom = somab_t**2
+    gamma0 = (1.0 - alpha_t) * sab_tm1 / denom
+    gamma1 = somab_tm1**2 * torch.sqrt(alpha_t) / denom
+    gamma2 = 1.0 + (sab_t - 1.0) * (torch.sqrt(alpha_t) + sab_tm1) / denom
+    beta_hat = somab_tm1**2 / denom * (1.0 - alpha_t)
+    return PSampleCoeffs(gamma0, gamma1, gamma2, torch.sqrt(beta_hat), sab_t, somab_t)
+
+
+def y0_reparam(y, eps, y_T_mean, alpha_bar_sqrt, one_minus_alpha_bar_sqrt):
+    """Epsilon-reparameterization of y_0 under the mean-shifted process."""
+    return (
+        y - (1.0 - alpha_bar_sqrt) * y_T_mean - eps * one_minus_alpha_bar_sqrt
+    ) / alpha_bar_sqrt
+
+
+def p_sample_step(y, eps, y_T_mean, coeffs: PSampleCoeffs, z) -> torch.Tensor:
+    """One ancestral reverse step t -> t-1 (t >= 1)."""
+    y0 = y0_reparam(y, eps, y_T_mean, coeffs.alpha_bar_sqrt, coeffs.one_minus_alpha_bar_sqrt)
+    mean = coeffs.gamma0 * y0 + coeffs.gamma1 * y + coeffs.gamma2 * y_T_mean
+    return mean + coeffs.beta_hat_sqrt * z
+
+
+def p_sample_final(y, eps, y_T_mean, sched: DiffusionSchedule) -> torch.Tensor:
+    """Final deterministic step at array index t=0 (diffusion step 1 -> 0)."""
+    somab = sched.one_minus_alphas_bar_sqrt[0]
+    sab = torch.sqrt(1.0 - somab**2)
+    return y0_reparam(y, eps, y_T_mean, sab, somab)
+
+
+def _draws(n: int, like: torch.Tensor, generator, noise) -> torch.Tensor:
+    shape = (n,) + tuple(like.shape)
+    if noise is None:
+        return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+    if tuple(noise.shape) != shape:
+        raise ValueError(f"noise must have shape {shape}; got {tuple(noise.shape)}")
+    return noise.to(device=like.device, dtype=like.dtype)
+
+
+def p_sample_loop(
+    eps_fn: EpsFn,
+    y_T_mean: torch.Tensor,
+    sched: DiffusionSchedule,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full ancestral reverse chain: ``y_T = z + y_T_mean``, steps
+    t = T-1 .. 1, then the deterministic 1 -> 0 step. ``noise``, if given,
+    has shape ``(T,) + y_T_mean.shape``."""
+    T = sched.num_timesteps
+    z = _draws(T, y_T_mean, generator, noise)
+    y = z[0] + y_T_mean
+    ts = list(range(T - 1, 0, -1))
+    coeffs = p_sample_coefficients(sched, torch.tensor(ts, dtype=torch.long))
+    for i, t in enumerate(ts):
+        eps = eps_fn(y, t)
+        c = PSampleCoeffs(*(v[i] for v in coeffs))
+        y = p_sample_step(y, eps, y_T_mean, c, z[i + 1])
+    return p_sample_final(y, eps_fn(y, 0), y_T_mean, sched)
+
+
+def ddim_timesteps(num_timesteps: int, num_steps: int, skip_type: str = "uniform") -> torch.Tensor:
+    """Increasing subsequence of array-timestep indices ending at 0 (int64,
+    on the host)."""
+    if skip_type == "uniform":
+        tau = np.linspace(0, num_timesteps - 1, num_steps)
+    elif skip_type == "quad":
+        tau = np.linspace(0, np.sqrt(num_timesteps - 1), num_steps) ** 2
+    else:
+        raise ValueError(f"unknown skip_type {skip_type!r}")
+    return torch.from_numpy(np.unique(tau.round().astype(np.int64)))
+
+
+def ddim_sample_loop(
+    eps_fn: EpsFn,
+    y_T_mean: torch.Tensor,
+    sched: DiffusionSchedule,
+    generator: Optional[torch.Generator],
+    tau: Sequence[int],
+    eta: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Strided (DDIM-style) reverse chain for the mean-shifted CARD process.
+
+    For consecutive subsequence indices t > s:
+        y_s = sqrt(ab_s) y0_hat + (1 - sqrt(ab_s)) m
+              + sqrt(1 - ab_s - sigma^2) eps + sigma z,
+        sigma = eta sqrt((1-ab_s)/(1-ab_t)) sqrt(1 - ab_t/ab_s).
+    The last step returns the y_0 reparameterization. ``noise``, if given,
+    has shape ``(len(tau),) + y_T_mean.shape``.
+    """
+    tau = [int(v) for v in tau]
+    n = len(tau)
+    z = _draws(n, y_T_mean, generator, noise)
+    y = z[0] + y_T_mean
+    t_hi = tau[1:][::-1]  # t_{n-1} .. t_1
+    t_lo = tau[:-1][::-1]  # t_{n-2} .. t_0
+    dev = sched.device
+    ab_t = sched.alphas_bar[torch.tensor(t_hi, dtype=torch.long, device=dev)]
+    ab_s = sched.alphas_bar[torch.tensor(t_lo, dtype=torch.long, device=dev)]
+    sab_t, sab_s, somab_t = torch.sqrt(ab_t), torch.sqrt(ab_s), torch.sqrt(1.0 - ab_t)
+    sigma = (
+        eta
+        * torch.sqrt((1.0 - ab_s) / (1.0 - ab_t))
+        * torch.sqrt(torch.clamp_min(1.0 - ab_t / ab_s, 0.0))
+    )
+    dir_coeff = torch.sqrt(torch.clamp_min(1.0 - ab_s - sigma**2, 0.0))
+    for i, t in enumerate(t_hi):
+        eps = eps_fn(y, t)
+        y0 = y0_reparam(y, eps, y_T_mean, sab_t[i], somab_t[i])
+        y = sab_s[i] * y0 + (1.0 - sab_s[i]) * y_T_mean + dir_coeff[i] * eps + sigma[i] * z[i + 1]
+    return p_sample_final(y, eps_fn(y, tau[0]), y_T_mean, sched)

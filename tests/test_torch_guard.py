@@ -1,0 +1,79 @@
+"""The port stands alone and never hides the card.
+
+* No module of ladine_tpu_torch, and not chip_smoke.py, imports jax, flax,
+  optax, orbax or the JAX package. The check reads the source (AST), not
+  ``sys.modules``: jax may already be imported by the interpreter's startup.
+* Entry points run on the card by default and raise without CUDA, unless the
+  caller passes ``device="cpu"``.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from ladine_tpu_torch.infer import Predictor
+from ladine_tpu_torch.models import ConditionalModel, MappingMLP, SEViTGuidance, ViT
+from ladine_tpu_torch.ops import DiffusionSchedule
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ladine_tpu"}
+
+
+def _sources():
+    files = sorted((ROOT / "ladine_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    return files
+
+
+def _top_level_imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = sorted(set(_top_level_imports(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_guard_checks_the_top_level_name(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import ladine_tpu_torch.ops\nfrom ladine_tpu.ops import schedules\n")
+    assert list(_top_level_imports(probe)) == ["ladine_tpu_torch", "ladine_tpu"]
+
+
+ENTRY_POINTS = {
+    "schedule": lambda **kw: DiffusionSchedule.create("linear", 10, **kw),
+    "vit": lambda **kw: ViT(img_size=16, patch_size=8, embed_dim=16, depth=1, num_heads=2, **kw),
+    "mlp": lambda **kw: MappingMLP(in_dim=8, hidden_dims=(4,), **kw),
+    "guidance": lambda **kw: SEViTGuidance(num_members=1, vit_depth=1, img_size=16, patch_size=8,
+                                           embed_dim=16, num_heads=2, mlp_hidden_dims=(4,), **kw),
+    "members": lambda **kw: ConditionalModel(2, 12, 4, 4, 2, 11, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+    ENTRY_POINTS[name](device="cpu")
+
+
+def test_predictor_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parts = dict(
+        guidance=ENTRY_POINTS["guidance"](device="cpu"),
+        model=ENTRY_POINTS["members"](device="cpu"),
+        sched=DiffusionSchedule.create("linear", 10, device="cpu"),
+        head_indices=(0, 1),
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(**parts)
+    assert Predictor(**parts, device="cpu").device.type == "cpu"
