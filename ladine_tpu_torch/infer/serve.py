@@ -8,8 +8,13 @@ Counterpart of ``ladine_tpu/infer/serve.py::Predictor``:
 
 One ``predict`` runs the guidance heads, the member encoders and the
 reverse chain of every member x MC trial x image on the card, then
-aggregates the samples into the four numpy outputs. The int8 presets and
-``save``/``load``/``export_serving`` are not ported yet (ROADMAP slice B).
+aggregates the samples into the four numpy outputs. The ``serving`` and
+``fast`` presets run the eps matmuls in int8 (``use_int8``), and ``fast``
+the encoders' and mapping heads' first layers too (``use_int8_encode``);
+``use_int8_pallas`` (with ``pallas_fuse_ends``) runs the int8 eps through
+the K4 (K5) kernels. The int8 weights are quantized once, at construction,
+beside the float weights, which stay as they are. ``save``/``load``/
+``export_serving`` are not ported yet (ROADMAP slice B).
 """
 
 from __future__ import annotations
@@ -23,15 +28,21 @@ import torch
 
 from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.infer.engine import nested_ensemble_sample
+from ladine_tpu_torch.kernels.int8 import (
+    int8_mapping_heads,
+    quantize_encoder,
+    quantize_mapping_heads,
+    quantize_member,
+)
 from ladine_tpu_torch.metrics.classification import convert_to_prob, majority_vote
 from ladine_tpu_torch.models.conditional import ConditionalModel
 from ladine_tpu_torch.models.guidance import SEViTGuidance
 from ladine_tpu_torch.ops.diffusion import ddim_timesteps
 from ladine_tpu_torch.ops.schedules import DiffusionSchedule
 
-# The JAX package's named operating points. Only "parity" (the full
-# ancestral chain in float) runs in the port so far; the others quantize the
-# eps matmuls to int8 (ROADMAP slice B).
+# The JAX package's named operating points: "parity" is the full ancestral
+# chain in float; "serving" a 50-step strided sampler with int8 eps matmuls;
+# "fast" a 10-step one with int8 eps, encoders and mapping heads.
 PRESETS = {
     "parity": dict(ddim_steps=0, use_int8=False, use_int8_encode=False),
     "serving": dict(ddim_steps=50, ddim_eta=1.0, skip_type="uniform",
@@ -53,7 +64,12 @@ class Predictor:
     skip_type: str = "uniform"  # strided timestep spacing: uniform | quad
     noise_prior: bool = False  # zero prior mean at T (reference --noise_prior)
     use_int8: bool = False
-    use_int8_encode: bool = False
+    use_int8_encode: bool = False  # int8 enc_lin1, and mapping-head linear1
+    # int8 eps through the K4 kernel (kernels/int8_linear.py); wins over
+    # use_int8. With pallas_fuse_ends the two K5 kernels
+    # (kernels/int8_eps_fused.py).
+    use_int8_pallas: bool = False
+    pallas_fuse_ends: bool = False
     seed: int = 0
     # which guidance heads condition the stacked members; None = heads
     # 0..n_stacked-1
@@ -61,11 +77,6 @@ class Predictor:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.use_int8 or self.use_int8_encode:
-            raise NotImplementedError(
-                "the int8 eps/encoder paths (use_int8, use_int8_encode; presets "
-                "'serving' and 'fast') are not ported yet: ROADMAP slice B"
-            )
         self.device = resolve_device(self.device)
         self.guidance.to(self.device)
         self.model.to(self.device)
@@ -92,6 +103,13 @@ class Predictor:
                 f"has {n_heads} heads (0..{n_heads - 1})"
             )
         self._idx = idx
+        # The resident int8 weights, quantized once here (member by member,
+        # never in place). The mapping heads' linear1 goes int8 only when
+        # every conditioning head is a mapping head.
+        self._qmember = quantize_member(self.model) if self.use_int8 or self.use_int8_pallas else None
+        self._qenc = quantize_encoder(self.model) if self.use_int8_encode else None
+        int8_heads = self.use_int8_encode and all(i < self.guidance.num_members for i in idx)
+        self._qheads = quantize_mapping_heads(self.guidance, idx) if int8_heads else None
         # itertools.count is atomic under the GIL: concurrent predict() calls
         # in a threaded server never share a seed
         self._counter = itertools.count()
@@ -124,13 +142,20 @@ class Predictor:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self.seed * 2**32 + next(self._counter))
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        heads = self.guidance.heads_subset(x, self._idx)
+        if self._qheads is not None:
+            taps = self.guidance.taps_subset(x, self._idx)
+            heads = int8_mapping_heads(self.guidance, taps, self._idx, self._qheads)
+        else:
+            heads = self.guidance.heads_subset(x, self._idx)
         y0_hat = torch.softmax(heads.float(), dim=-1)
         x_flat = x.reshape(x.shape[0], -1)  # NHWC, channel-last
         samples = nested_ensemble_sample(
             self.model, x_flat, y0_hat, self.sched, mc_trials=self.mc_trials,
             tau=self._tau, eta=self.ddim_eta, noise_prior=self.noise_prior,
             generator=generator, noise=noise,
+            use_int8_eps=self.use_int8 and not self.use_int8_pallas,
+            use_int8_encode=self.use_int8_encode, use_int8_pallas=self.use_int8_pallas,
+            pallas_fuse_ends=self.pallas_fuse_ends, qmember=self._qmember, qenc=self._qenc,
         )
         m, k, b, c = samples.shape
         flat = samples.reshape(m * k, b, c)

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources and load them with ctypes.
 
-Each ``ladine_tpu_torch/csrc/<name>.cu`` is compiled on first use with
+Each ``ladine_tpu_torch/csrc/<name>.cu`` (with the ``*.cuh`` headers it
+includes) is compiled on first use with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas=-v
 
 into ``ladine_tpu_torch/_build/<name>-<source hash>.so`` (listed in
 ``.gitignore``) and loaded with ``ctypes``. The sources expose a plain C
@@ -31,6 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # each kernel's registers and spills, in the build log
 )
 
 launch_counts: collections.Counter = collections.Counter()
@@ -47,9 +49,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library's path: the hash covers the source and every shared
+    header (``csrc/*.cuh``), so a changed header rebuilds its includers."""
+    digest = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for part in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, part), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _start(name: str):
@@ -64,23 +71,25 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
+    """Wait for nvcc; its log, or "" when nothing was built."""
     if started is None:
-        return
+        return ""
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile the named sources, one nvcc each, all started together."""
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile the named sources, one nvcc each, all started together;
+    returns each one's nvcc log ("" where it was already built)."""
     names = list(names)
     with _lock:
         started = [(n, _start(n)) for n in names]
-        for n, s in started:
-            _finish(n, s)
+        return {n: _finish(n, s) for n, s in started}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,11 +18,14 @@ from ladine_tpu.infer import Predictor as JaxPredictor
 from ladine_tpu.models import ConditionalModel as JaxConditionalModel
 from ladine_tpu.models import SEViTGuidance as JaxGuidance
 from ladine_tpu.ops import DiffusionSchedule as JaxSchedule
+import torch
+
 from ladine_tpu_torch.infer import Predictor
+from ladine_tpu_torch.infer.serve import PRESETS
 from ladine_tpu_torch.models import ConditionalModel, SEViTGuidance
 from ladine_tpu_torch.ops import DiffusionSchedule
 from ladine_tpu_torch.utils import guidance_from_flax, members_from_flax
-from torch_parity import j2t, jax_ensemble_noise, jax_members
+from torch_parity import j2t, jax_ensemble_noise, jax_folded_noise, jax_members
 
 G = dict(num_classes=2, num_members=3, vit_depth=3, img_size=16, patch_size=8, embed_dim=16,
          num_heads=2, mlp_hidden_dims=(16, 8, 8))
@@ -95,11 +98,52 @@ def test_head_indices_and_input_validation(parts):
         ours.predict(np.zeros((2, 3, 16, 16), np.float32))
 
 
-@pytest.mark.parametrize("preset", ["serving", "fast"])
-def test_int8_presets_are_not_ported_yet(parts, preset):
-    with pytest.raises(NotImplementedError, match="slice B"):
-        Predictor.from_preset(preset, guidance=parts["g"], model=parts["m"],
-                              sched=DiffusionSchedule.create("linear", T, device="cpu"), device="cpu")
+# The int8 operating points at DDIM-3. Both sides pick the same int8 codes
+# (tests/test_torch_int8.py) and agree to ~1e-7 here; float32 sums in
+# another order could still flip one code at a rounding boundary, which
+# moves one eps value by about a quantization step (~1e-3 relative at these
+# widths) and the aggregated outputs by less: rtol/atol 1e-3, and the vote
+# must be equal.
+INT8_CASES = {
+    "serving": dict(PRESETS["serving"], ddim_steps=3),
+    "fast": dict(PRESETS["fast"], ddim_steps=3),
+    "fast-heads-with-vit": dict(PRESETS["fast"], ddim_steps=3, head_indices=(2, 0, 3)),
+    "serving-int8-pallas": dict(PRESETS["serving"], ddim_steps=3, use_int8_pallas=True),
+    "serving-int8-pallas-fuse-ends": dict(PRESETS["serving"], ddim_steps=3, use_int8_pallas=True,
+                                          pallas_fuse_ends=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+def test_int8_predict_matches_jax_predictor(parts, name):
+    kw = INT8_CASES[name]
+    before = {k: v.clone() for k, v in parts["m"].state_dict().items()}
+    ref, ours = _pair(parts, **kw)
+    images = np.random.default_rng(3).random((4, 16, 16, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    # the JAX engine folds the trials into rows only under use_int8_pallas
+    draws = jax_folded_noise if kw.get("use_int8_pallas") else jax_ensemble_noise
+    noise = draws(key, 3, 2, (4, 2), len(ours._tau))
+    want = ref.predict(images, key=key)
+    got = ours.predict(images, noise=j2t(noise))
+    np.testing.assert_array_equal(got["majority_vote"], np.asarray(want["majority_vote"]))
+    for out in ("probs", "piw", "mc_variance"):
+        np.testing.assert_allclose(got[out], np.asarray(want[out]), rtol=1e-3, atol=1e-3, err_msg=out)
+    # quantization keeps its int8 copies beside the float weights
+    assert all(torch.equal(v, before[k]) for k, v in parts["m"].state_dict().items())
+
+
+def test_int8_weights_are_quantized_once_at_construction(parts):
+    _, fast = _pair(parts, **INT8_CASES["fast"])
+    assert set(fast._qmember) == {"lin2", "lin3"} and fast._qenc[0].dtype == torch.int8
+    assert sorted(fast._qheads) == [0, 1, 2]
+    _, vit = _pair(parts, **INT8_CASES["fast-heads-with-vit"])
+    assert vit._qheads is None and vit._qenc is not None  # the ViT head has no int8 form
+    _, parity = _pair(parts, ddim_steps=0)
+    assert parity._qmember is None and parity._qenc is None and parity._qheads is None
+
+
+def test_unknown_preset_raises():
     with pytest.raises(ValueError, match="unknown preset"):
         Predictor.from_preset("turbo")
 

@@ -42,6 +42,16 @@ def jax_ensemble_noise(key, members: int, trials: int, shape, n_draws: int) -> n
     return out
 
 
+def jax_folded_noise(key, members: int, trials: int, shape, n_draws: int) -> np.ndarray:
+    """The draws of the JAX engine's ``use_int8_pallas`` path, which folds
+    the trials into rows: ``split(key, M)`` per member, then one loop over
+    a (trials, *shape) y. Returns (n_draws, M, K, *shape)."""
+    out = np.empty((n_draws, members, trials) + tuple(shape), np.float32)
+    for m, mk in enumerate(jax.random.split(key, members)):
+        out[:, m] = jax_loop_noise(mk, (trials,) + tuple(shape), n_draws)
+    return out
+
+
 def jax_members(model, n: int, data_dim: int, key_base: int = 5):
     """n flax ConditionalModel variable trees with BatchNorm statistics
     pushed off their init values (one train-mode pass each), stacked on a
