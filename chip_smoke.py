@@ -12,7 +12,10 @@ Phases, each fatal on failure (no failure is caught):
    stated tolerance, the kernel's time, the plain version's time, the
    card's bound for the same work and, for attention, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (never called by
-   the port).
+   the port). K1 is timed at lin2/lin3 (its ``mma`` body) and lin1 (its
+   ``small_k`` body, a sub-record), beside ``torch.bmm`` on the lin2/lin3
+   shapes as a GEMM-only yardstick (``cublas_gemm_ms``, never called by the
+   port), and its ``mma`` body also at 20 and 1400 rows a member.
    The int8 kernels (K4 int8_linear_softplus in both schemes, K5a/K5b
    int8_eps_fused_l12/_l34) also print one layer of the ``torch._int_mm``
    int8 path as a yardstick, and their bounds use the int8 rate.
@@ -113,6 +116,7 @@ def compare(label, out, ref, tol):
 def check_kernels():
     """Phase 2: each kernel against its plain version at the path's shapes."""
     from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import fused_linear
 
     g = torch.Generator(device="cuda").manual_seed(1)
     bf16, dev = torch.bfloat16, "cuda"
@@ -123,31 +127,51 @@ def check_kernels():
     def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
         return torch.empty(*shape, device=dev).uniform_(lo, hi, generator=g).to(dtype)
 
-    # K1 at lin2/lin3 (K = N = 4096), with and without the gate, and lin1 (K = 4)
+    # K1 at lin2/lin3 (K = N = 4096, the mma body), with and without the
+    # gate, and lin1 (K = 4, the small_k body)
     h = rnd(M, R, F_, lo=0.0, hi=2.0, dtype=bf16)
     w = rnd(M, F_, F_, lo=-F_**-0.5, hi=F_**-0.5, dtype=bf16)
     a, c = rnd(M, F_, lo=0.5, hi=1.5), rnd(M, F_, lo=-0.5, hi=0.5)
     f = rnd(M, R, F_, dtype=bf16)
     y_in = rnd(M, R, 4, lo=0.0, hi=1.0, dtype=bf16)
     w1 = rnd(M, 4, F_, lo=-0.5, hi=0.5, dtype=bf16)
-    k1_err, k1 = 0.0, None
+    k1 = {}
     for label, args in (("lin2/lin3", (h, w, a, c, None)), ("lin2 + gate", (h, w, a, c, f)),
-                        ("lin1 (K=4) + gate", (y_in, w1, a, c, f))):
+                        ("lin1", (y_in, w1, a, c, f))):
         x_, w_, _, _, m_ = args
         out = K.fused_linear_act(*args)
         torch.cuda.synchronize()
-        k1_err = max(k1_err, compare(f"fused_linear_act {label} {tuple(x_.shape)}x{tuple(w_.shape)}",
-                                     out, K.fused_linear_act_plain(*args), tol))
+        err = compare(f"fused_linear_act {label} {tuple(x_.shape)}x{tuple(w_.shape)} "
+                      f"body={fused_linear.plan(x_.dtype, x_.shape[-1], F_, True)[0]}",
+                      out, K.fused_linear_act_plain(*args), tol)
         ms = cuda_ms(lambda: K.fused_linear_act(*args), 20)
         plain_ms = cuda_ms(lambda: K.fused_linear_act_plain(*args), 5)
         b_ms, b_by = bound((*args, out), (2 * M * R * x_.shape[-1] * F_, BF16_FLOP_PER_S))
         print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        if k1 is None:  # the lin2/lin3 shape carries nearly all of the path's work
-            k1 = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      shape=f"x{tuple(x_.shape)} w{tuple(w_.shape)} bf16")
+        k1[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         shape=f"x{tuple(x_.shape)} w{tuple(w_.shape)} bf16")
+    # yardstick, never called by the port: the GEMM alone (no epilogue) in cuBLAS
+    cublas_gemm_ms = cuda_ms(lambda: torch.bmm(h, w), 20)
+    print(f"    yardstick: torch.bmm {tuple(h.shape)}x{tuple(w.shape)} (cuBLAS, GEMM only) "
+          f"{cublas_gemm_ms:.4f} ms")
+    # the mma body at other row counts (batch 1 and batch 70 of the JAX bench):
+    # how its time follows the x re-reads (rows) against the weight stream (fixed)
+    rows_ms, errs = {str(R): k1["lin2/lin3"]["ms"]}, [v["max_abs_err"] for v in k1.values()]
+    for rows in (20, 1400):
+        hx = rnd(M, rows, F_, lo=0.0, hi=2.0, dtype=bf16)
+        args = (hx, w, a, c, None)
+        out = K.fused_linear_act(*args)
+        torch.cuda.synchronize()
+        errs.append(compare(f"fused_linear_act lin2/lin3 at R={rows}", out, K.fused_linear_act_plain(*args), tol))
+        rows_ms[str(rows)] = cuda_ms(lambda: K.fused_linear_act(*args), 20)
+        b_ms, b_by = bound((*args, out), (2 * M * rows * F_ * F_, BF16_FLOP_PER_S))
+        print(f"    ms={rows_ms[str(rows)]:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    # the lin2/lin3 shape carries nearly all of the path's work; lin1 rides as a sub-record
     entries.append(dict(
         name="fused_linear_act", route="cuda", source="ladine_tpu_torch/csrc/fused_linear.cu",
-        replaces="ladine_tpu/kernels/fused_linear.py:66", max_abs_err=k1_err, library_ms=None, **k1))
+        replaces="ladine_tpu/kernels/fused_linear.py:66", library_ms=None, cublas_gemm_ms=cublas_gemm_ms,
+        **k1["lin2/lin3"], gate_ms=k1["lin2 + gate"]["ms"], rows_ms=rows_ms, lin1=k1["lin1"]))
+    entries[-1]["max_abs_err"] = max(errs)
 
     # K3 on the strided q/k/v slices of a fused qkv projection
     B, N, H, D = BATCH, 196, 12, 64
@@ -464,6 +488,11 @@ def trace(pred, images, label, top: int = 8):
     print(f"  trace of one {label} request: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f} %), idle {100 * (1 - busy_ms / wall_ms):.1f} %, "
           f"{sum(e.count for e in rows)} device launches")
+    for src, tag in (("K1 fused_linear.cu", "fused_linear_"), ("K3 attention.cu", "attention_")):
+        hits = [e for e in rows if tag in e.key]
+        if hits:
+            print(f"    {src}: {sum(e.self_device_time_total for e in hits) / 1e3:.2f} ms in "
+                  f"{sum(e.count for e in hits)} launches")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
 

@@ -5,6 +5,10 @@ same (B, N, H, D) layout with scale D^-0.5: fp32 scores and softmax, the
 probabilities cast to v's dtype, the output in q's dtype. A CPU tensor goes
 through :func:`flash_attention_plain`; a CUDA tensor goes through the kernel
 (``csrc/attention.cu``), or the wrapper raises.
+
+The kernel has two bodies, chosen by dtype (:func:`body`): bfloat16 runs
+on the tensor cores (``mma.sync``) and takes D = 16, 32, ..., 128; float32
+runs scalar FMA and takes any D of whole 16-byte vectors.
 """
 
 from __future__ import annotations
@@ -41,6 +45,16 @@ def _lib():
     return lib
 
 
+def body(dtype: torch.dtype, d: int) -> str:
+    """The kernel body that takes (dtype, D): "mma" for bfloat16, "scalar"
+    for float32; raises on a bfloat16 D the tensor-core body cannot take."""
+    if dtype == torch.bfloat16:
+        if d % 16 or not 16 <= d <= 128:
+            raise ValueError(f"{_KERNEL}: bfloat16 needs D a multiple of 16 up to 128, got {d}")
+        return "mma"
+    return "scalar"
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{_KERNEL}: q, k, v must share one (B, N, H, D) shape")
@@ -55,6 +69,7 @@ def _check(q, k, v):
             or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError(f"{_KERNEL}: D, the strides and the pointers must be multiples of 16 bytes")
     b, n, h, d = q.shape
+    body(q.dtype, d)
     if b > 65535 or h > 65535:
         raise ValueError(f"{_KERNEL}: batch and heads must each be at most 65535 (grid)")
     return b, n, h, d
@@ -66,7 +81,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     On the card q, k and v share one dtype (float32 or bfloat16) and one
     stride pattern with a unit innermost stride, as the slices of a fused
     qkv projection do; D, the other strides and the data pointers are
-    multiples of the kernel's 16-byte vector."""
+    multiples of the kernel's 16-byte vector; in bfloat16 D is a multiple of
+    16 up to 128."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     b, n, h, d = _check(q, k, v)

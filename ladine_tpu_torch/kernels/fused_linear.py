@@ -9,6 +9,13 @@ The member axis leads every argument and is a grid dimension of the kernel
 (``csrc/fused_linear.cu``): one launch covers all members. A CPU tensor
 goes through :func:`fused_linear_act_plain`; a CUDA tensor goes through the
 kernel, or the wrapper raises.
+
+The kernel has three bodies, chosen by shape and dtype (:func:`plan`):
+``small_k`` for K <= 16 in either dtype (lin1, K = 4: an outer product and
+an elementwise pass), ``mma`` for larger K in bfloat16 (lin2 and lin3:
+``mma.sync`` tiles of 160 rows x 128 columns, K split over a cluster pair of
+blocks, each weight strip read once), ``simt`` for larger K in float32. Each
+launch counts as one ``fused_linear_act``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from ladine_tpu_torch.kernels import _build
 
 _NAME = "fused_linear"
 _KERNEL = "fused_linear_act"
+SMALL_K = 16  # the largest K the small_k body takes
+_BODIES = {"small_k": 0, "mma": 1, "simt": 2}  # the codes of csrc/fused_linear.cu
 
 
 def fused_linear_act_plain(x, w, a, c, mult=None) -> torch.Tensor:
@@ -41,7 +50,7 @@ def _lib():
     lib = _build.load(_NAME)
     fn = lib.fused_linear_act_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -73,6 +82,19 @@ def _check(x, w, a, c, mult):
     return m, r, k, n
 
 
+def plan(dtype: torch.dtype, k: int, n: int, aligned: bool):
+    """(body, vec) of a call: the kernel body for K and the dtype, and
+    whether its tiles move as 16-byte vectors. ``aligned``: every pointer is
+    16-byte aligned. small_k needs N % 8 == 0 for vectors (8 outputs a
+    thread); the GEMM bodies need K and N multiples of the 16-byte vector.
+    Without vectors a body stages element by element: a dispatch by shape,
+    not a fallback."""
+    if k <= SMALL_K:
+        return "small_k", aligned and n % 8 == 0
+    vw = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return ("mma" if dtype == torch.bfloat16 else "simt"), aligned and k % vw == 0 and n % vw == 0
+
+
 def fused_linear_act(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -84,23 +106,24 @@ def fused_linear_act(
 
     x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N) or
     None; x, w and mult share one dtype (float32 or bfloat16). Returns
-    (M, R, N) in x.dtype."""
+    (M, R, N) in x.dtype. On the card the kernel body follows from K and
+    the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16 and
+    simt in float32."""
     if x.device.type == "cpu":
         return fused_linear_act_plain(x, w, a, c, mult)
     m, r, k, n = _check(x, w, a, c, mult)
     out = torch.empty((m, r, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vw = 16 // x.element_size()
-    ptrs = [t.data_ptr() for t in (x, w, mult) if t is not None]
-    vec = k % vw == 0 and n % vw == 0 and all(p % 16 == 0 for p in ptrs)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, a, c, mult, out) if t is not None)
+    body, vec = plan(x.dtype, k, n, aligned)
     launch = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
             None if mult is None else mult.data_ptr(), out.data_ptr(),
-            m, r, k, n, int(x.dtype == torch.bfloat16), int(vec), stream,
+            m, r, k, n, int(x.dtype == torch.bfloat16), int(vec), _BODIES[body], stream,
         )
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1

@@ -7,7 +7,9 @@ a machine with the card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 differs from the plain version only in summation order
-(1e-4); bf16 outputs are rounded to bf16 (2^-8 relative), so 1e-2. The int8
+(1e-4); bf16 outputs are rounded to bf16 (2^-8 relative), so 1e-2 (in
+attention the probabilities are rounded to bf16 too, as in the plain
+version, and can round apart where the sums differ in order). The int8
 kernels pick the same int8 codes as their plain versions (same IEEE
 division, round half to even) and sum them exactly in int32, so K4 differs
 only where softplus rounds apart (1e-5 in fp32); K5's lin1 sums its 4 terms
@@ -84,6 +86,62 @@ def test_kernels_raise_instead_of_falling_back(cuda):
     q = torch.zeros(1, 4, 2, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("n", [1, 64, 65, 196, 197, 300])
+def test_flash_attention_bf16_mma_body_matches_plain(cuda, n, d):
+    """The tensor-core body on strided qkv views: one and several 64-row
+    query tiles, a ragged last tile, and more keys than one 32-key chunk."""
+    _, (q, k, v) = qkv_views(np.random.default_rng(10), 2, n, 3, d)
+    q, k, v = (torch.stack([q, k, v], 2).to(cuda, torch.bfloat16)[:, :, i] for i in range(3))
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1 and out.shape == (2, n, 3, d)
+    _close(out, flash_attention_plain(q, k, v), 1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_raises_on_d_24(cuda):
+    q = torch.zeros(1, 4, 2, 24, device=cuda, dtype=torch.bfloat16)
+    launch_counts.clear()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention(q, q, q)
+    assert launch_counts["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 20, 160, 161, 1400])
+def test_fused_linear_act_mma_body_at_any_row_count(cuda, r):
+    """lin2/lin3's shape (K = N = 4096, bf16) at row counts below, at and
+    above one 160-row tile, with and without the gate."""
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(11), 2, r, 4096, 4096))
+    x, w, mult = x.bfloat16(), w.bfloat16(), mult.bfloat16()
+    for m in (None, mult):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, m)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1
+        _close(out, fused_linear_act_plain(x, w, a, c, m), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 16])
+@pytest.mark.parametrize("shape", [(5, 160, 4096), (2, 9, 17)], ids=["path", "ragged-N"])
+def test_fused_linear_act_small_k_body_matches_plain(cuda, dtype, k, shape):
+    m, r, n = shape
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(12), m, r, k, n))
+    x, w, mult = x.to(dtype), w.to(dtype), mult.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g in (None, mult):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, g)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1
+        _close(out, fused_linear_act_plain(x, w, a, c, g), tol)
 
 
 INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136)]

@@ -129,3 +129,71 @@ def test_flash_attention_matches_jax():
     ref = jax_flash_attention(*(jnp.asarray(qkv[:, :, i].numpy()) for i in range(3)))
     assert out.shape == (2, 13, 4, 16)
     np.testing.assert_allclose(t2n(out), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize(
+    "dtype, k, n, aligned, want",
+    [
+        (BF16, 4, 4096, True, ("small_k", True)),  # lin1 on the path
+        (BF16, 4096, 4096, True, ("mma", True)),  # lin2 / lin3 on the path
+        (F32, 4, 4096, True, ("small_k", True)),  # lin1 of the fp32 predictor
+        (F32, 4096, 4096, True, ("simt", True)),
+        (BF16, 2, 4096, True, ("small_k", True)),
+        (BF16, 16, 4096, True, ("small_k", True)),
+        (BF16, 17, 4096, True, ("mma", False)),  # K not a multiple of 8
+        (F32, 16, 17, True, ("small_k", False)),  # N not a multiple of 8
+        (BF16, 4096, 4096, False, ("mma", False)),  # a pointer off 16 bytes
+        (BF16, 4, 4096, False, ("small_k", False)),
+        (BF16, 24, 17, True, ("mma", False)),
+        (F32, 24, 17, True, ("simt", False)),
+        (BF16, 256, 200, True, ("mma", True)),
+        (F32, 256, 200, True, ("simt", True)),
+        (BF16, 72, 64, True, ("mma", True)),
+        (F32, 40, 12, True, ("simt", True)),  # fp32's vector is 4 wide
+    ],
+)
+def test_fused_linear_act_plan_is_a_function_of_shape_dtype_and_alignment(dtype, k, n, aligned, want):
+    assert fl_mod.plan(dtype, k, n, aligned) == want
+
+
+@pytest.mark.parametrize("r", [1, 20, 160, 161, 1400])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_fused_linear_act_plan_ignores_the_row_count(r, dtype):
+    """Rows only add row tiles: lin2/lin3 take the GEMM body at any R, and
+    lin1 the small_k body, through the wrapper's own check of the shapes."""
+    x, w, a, c, mult = (torch.zeros(s, dtype=dtype if i in (0, 1, 4) else F32)
+                        for i, s in enumerate([(5, r, 4096), (5, 4096, 8), (5, 8), (5, 8), (5, r, 8)]))
+    m, r_, k, n = fl_mod._check(x, w, a, c, mult)
+    assert (m, r_) == (5, r)
+    assert fl_mod.plan(dtype, k, n, True) == ("mma" if dtype == BF16 else "simt", True)
+    assert fl_mod.plan(dtype, 4, n, True) == ("small_k", True)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_flash_attention_body_bf16_takes_d_multiple_of_16(d):
+    assert attn_mod.body(BF16, d) == "mma"
+
+
+@pytest.mark.parametrize("d", [4, 8, 24, 64, 100])
+def test_flash_attention_body_f32_is_scalar_at_any_d(d):
+    assert attn_mod.body(F32, d) == "scalar"
+
+
+@pytest.mark.parametrize("d", [8, 24, 40, 136, 144])
+def test_flash_attention_body_bf16_raises_off_the_tensor_core_shapes(d):
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        attn_mod.body(BF16, d)
+
+
+def test_flash_attention_check_raises_on_bf16_d_24():
+    """D = 24 in bf16 is whole 16-byte vectors but no k16 step: _check
+    refuses it, while fp32 D = 8 (above) is taken."""
+    qkv, _ = qkv_views(np.random.default_rng(5), 2, 5, 2, 24)
+    qkv = qkv.bfloat16()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        attn_mod._check(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    qkv, _ = qkv_views(np.random.default_rng(5), 2, 5, 2, 32)
+    assert attn_mod._check(*(qkv.bfloat16()[:, :, i] for i in range(3))) == (2, 5, 2, 32)
