@@ -18,7 +18,9 @@ Phases, each fatal on failure (no failure is caught):
    port), and its ``mma`` body also at 20 and 1400 rows a member.
    The int8 kernels (K4 int8_linear_softplus in both schemes, K5a/K5b
    int8_eps_fused_l12/_l34) also print one layer of the ``torch._int_mm``
-   int8 path as a yardstick, and their bounds use the int8 rate.
+   int8 path as a yardstick, and their bounds use the int8 rate; K4 is
+   also timed at 20 and 1400 rows a member, and K5a's lin1 pass alone
+   (a sub-record; its codes must equal the plain version's).
 3. A small fp32 predictor on the card against the same predictor on the CPU
    (plain versions), same weights, same injected noise: the float chain,
    and the int8 chain through K4 and through K5.
@@ -30,8 +32,8 @@ Phases, each fatal on failure (no failure is caught):
    flash_attention 5 per request. Then one request through the default
    DDIM-50 sampler, the stages of one parity request (guidance heads,
    member encoders, reverse chain) and a torch.profiler trace of one parity
-   request (device time by kernel, device busy share). Then, on the same
-   modules, one batch-8 request each at the int8 operating points
+   request (device time by kernel and by source, device busy share). Then,
+   on the same modules, one batch-8 request each at the int8 operating points
    ``serving``, ``fast``, ``serving`` + ``use_int8_pallas`` (K4, 100
    launches) and + ``pallas_fuse_ends`` (K5a and K5b, 50 each), each with
    the same checks, exact launch counts, its stages, peak memory and trace.
@@ -254,6 +256,21 @@ def check_int8_kernels():
         else:
             k4["max_abs_err"] = max(k4["max_abs_err"], err)
             k4["zero_point_ms"] = ms
+    # K4 (symmetric) at other row counts (batch 1 and batch 70 of the JAX
+    # bench): the weight stream is fixed, x's re-reads and the work grow with R
+    k4["rows_ms"], k4["rows_bound_ms"] = {str(R): k4["ms"]}, {str(R): k4["bound_ms"]}
+    for rows in (20, 1400):
+        x = rnd(M, rows, F_, lo=-2.0, hi=2.0, dtype=bf16)
+        args = (x, x.float().abs().amax(-1, keepdim=True).contiguous(), w_q, s, c, None)
+        got = K.int8_linear_softplus(*args)
+        torch.cuda.synchronize()
+        k4["max_abs_err"] = max([k4["max_abs_err"]] + [
+            compare(f"int8_linear_softplus symmetric at R={rows} {o}", a_, b_, tol)
+            for o, a_, b_ in zip(("h", "hmax"), got, K.int8_linear_softplus_plain(*args))])
+        k4["rows_ms"][str(rows)] = cuda_ms(lambda: K.int8_linear_softplus(*args), 50)
+        b_ms, b_by = bound((*args, *got), (2 * M * rows * F_ * F_, INT8_OP_PER_S))
+        k4["rows_bound_ms"][str(rows)] = b_ms
+        print(f"    ms={k4['rows_ms'][str(rows)]:.4f} bound_ms={b_ms:.4f} ({b_by})")
     entries.append(dict(
         name="int8_linear_softplus", route="cuda", source="ladine_tpu_torch/csrc/int8_linear.cu",
         replaces="ladine_tpu/kernels/int8_pallas.py:136", library_ms=None, **k4))
@@ -263,6 +280,22 @@ def check_int8_kernels():
     y_in = rnd(M, R, 2 * C, lo=0.0, hi=1.0, dtype=bf16)
     w1 = rnd(M, 2 * C, F_, lo=-0.5, hi=0.5, dtype=bf16)
     a1, c1 = rnd(M, F_, lo=0.5, hi=1.5), rnd(M, F_, lo=-0.5, hi=0.5)
+    # its lin1 pass alone: the same codes and max|h1| as the plain version, bit for bit
+    lin1_args = (f, y_in, w1, a1, c1)
+    xq, xmax1 = K.int8_lin1(*lin1_args)
+    torch.cuda.synchronize()
+    ref_q, ref_m = K.int8_lin1_plain(*lin1_args)
+    codes_ok = torch.equal(xq, ref_q) and torch.equal(xmax1, ref_m)
+    print(f"  int8_lin1 (K5a's lin1 pass) f{tuple(f.shape)} y_in{tuple(y_in.shape)}: int8 codes and "
+          f"max|h1| {'equal' if codes_ok else 'DIFFER'} ({int((xq != ref_q).sum())} codes differ)")
+    if not codes_ok:
+        raise AssertionError("int8_lin1: the kernel's codes differ from its plain version's")
+    lin1_b_ms, lin1_b_by = bound((*lin1_args, xq, xmax1), (2 * M * R * 2 * C * F_, FP32_FLOP_PER_S))
+    lin1 = dict(ms=cuda_ms(lambda: K.int8_lin1(*lin1_args), 50),
+                plain_ms=cuda_ms(lambda: K.int8_lin1_plain(*lin1_args), 10),
+                bound_ms=lin1_b_ms, bound_by=lin1_b_by, max_abs_err=0.0,
+                shape=f"f{tuple(f.shape)} y_in{tuple(y_in.shape)} bf16")
+    print(f"    ms={lin1['ms']:.4f} plain_ms={lin1['plain_ms']:.4f} bound_ms={lin1_b_ms:.4f} ({lin1_b_by})")
     args = (f, y_in, w1, a1, c1, w_q, s, c)
     err, ms, plain_ms, b_ms, b_by = timed(
         f"int8_eps_fused_l12 f{tuple(f.shape)} w2{tuple(w_q.shape)}", lambda: K.int8_eps_l12(*args),
@@ -272,7 +305,7 @@ def check_int8_kernels():
     entries.append(dict(
         name="int8_eps_fused_l12", route="cuda", source="ladine_tpu_torch/csrc/int8_eps_fused.cu",
         replaces="ladine_tpu/kernels/int8_pallas.py:391", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, lin1=lin1,
         shape=f"f{tuple(f.shape)} bf16, w2{tuple(w_q.shape)} int8"))
 
     # K5b: lin3 (zero-point) + lin4 (N = C)
@@ -473,6 +506,17 @@ def stages(pred, images, label):
           f"total {total_ms:.1f} ms")
 
 
+# Device time by source in the traces: (label, a substring of the kernel's name)
+TRACE_SOURCES = (
+    ("K1 fused_linear.cu", "fused_linear_"),
+    ("K3 attention.cu", "attention_"),
+    ("int8 quantizing pre-pass (K4, K5b)", "quantize_rows_kernel"),
+    ("K5a lin1 pass", "lin1_quantize_kernel"),
+    ("int8 GEMM, STORE epilogue (K4, K5a)", "int8_gemm_kernel<__nv_bfloat16, 0>"),
+    ("int8 GEMM, LIN4 epilogue (K5b)", "int8_gemm_kernel<__nv_bfloat16, 1>"),
+)
+
+
 def trace(pred, images, label, top: int = 8):
     """Where a request's device time goes: torch.profiler over one request,
     device time summed by kernel name, and the device's busy share of the
@@ -488,11 +532,11 @@ def trace(pred, images, label, top: int = 8):
     print(f"  trace of one {label} request: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f} %), idle {100 * (1 - busy_ms / wall_ms):.1f} %, "
           f"{sum(e.count for e in rows)} device launches")
-    for src, tag in (("K1 fused_linear.cu", "fused_linear_"), ("K3 attention.cu", "attention_")):
+    for src, tag in TRACE_SOURCES:
         hits = [e for e in rows if tag in e.key]
         if hits:
-            print(f"    {src}: {sum(e.self_device_time_total for e in hits) / 1e3:.2f} ms in "
-                  f"{sum(e.count for e in hits)} launches")
+            ms, n = sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
+            print(f"    {src}: {ms:.2f} ms in {n} launches ({ms / n:.4f} ms a launch)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
 

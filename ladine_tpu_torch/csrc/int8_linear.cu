@@ -19,9 +19,10 @@
 // element for each of the 32 N tiles, about 7x the int8 tensor-core work of
 // the tile, so the quantization runs once per call as a pre-pass
 // (quantize_rows_kernel: x is read once, int8 x written once, 10 MB at
-// batch 8), and the GEMM of int8_gemm.cuh reads the int8 rows. Its epilogue
-// applies the folded affine and softplus, stores h and takes the row max
-// with atomics (int8_gemm.cuh).
+// batch 8), and the GEMM of int8_gemm.cuh reads the int8 rows: 160 x 128
+// tiles, K split over a cluster pair, each weight strip read once. Its
+// epilogue applies the folded affine and softplus, stores h and takes the
+// row max (int8_gemm.cuh).
 
 #include "int8_gemm.cuh"
 
@@ -29,28 +30,33 @@ namespace {
 
 template <typename T>
 int launch(const void* x, const void* xmax, void* xq, const void* w, const void* s, const void* c,
-           const void* colsum, void* h, void* hmax, int M, int R, int K, int N, cudaStream_t st) {
+           const void* colsum, void* h, void* hmax, int M, int R, int K, int N, int row_tiles,
+           int col_tiles, cudaStream_t st) {
   const bool zp = colsum != nullptr;
   int err = int8k::launch_quantize_rows<T>(x, static_cast<const float*>(xmax),
                                            static_cast<int8_t*>(xq), (long long)M * R, K, zp, st);
   if (err != 0) return err;
   return int8k::launch_gemm<T, int8k::STORE>(static_cast<const int8_t*>(xq),
                                              static_cast<const float*>(xmax), w, s, c, colsum, h,
-                                             hmax, nullptr, nullptr, M, R, K, N, 0, st);
+                                             hmax, nullptr, nullptr, M, R, K, N, 0, row_tiles,
+                                             col_tiles, st);
 }
 
 }  // namespace
 
 // xq: (M, R, K) int8 scratch; hmax: (M, R) fp32, zero-filled; colsum null
-// for the symmetric scheme.
+// for the symmetric scheme; row_tiles, col_tiles: the GEMM's plan
+// (kernels/int8_linear.py::gemm_plan).
 extern "C" int int8_linear_softplus_launch(const void* x, const void* xmax, void* xq, const void* w,
                                            const void* s, const void* c, const void* colsum,
                                            void* h, void* hmax, int M, int R, int K, int N,
-                                           int is_bf16, void* stream) {
+                                           int row_tiles, int col_tiles, int is_bf16,
+                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, xmax, xq, w, s, c, colsum, h, hmax, M, R, K, N, st);
-  return launch<float>(x, xmax, xq, w, s, c, colsum, h, hmax, M, R, K, N, st);
+    return launch<__nv_bfloat16>(x, xmax, xq, w, s, c, colsum, h, hmax, M, R, K, N, row_tiles,
+                                 col_tiles, st);
+  return launch<float>(x, xmax, xq, w, s, c, colsum, h, hmax, M, R, K, N, row_tiles, col_tiles, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

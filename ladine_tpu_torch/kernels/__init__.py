@@ -11,6 +11,8 @@ from ladine_tpu_torch.kernels.int8_eps_fused import (
     int8_eps_l34,
     int8_eps_l34_plain,
     int8_eps_pallas_fused,
+    int8_lin1,
+    int8_lin1_plain,
 )
 from ladine_tpu_torch.kernels.int8_linear import (
     int8_eps_pallas,
@@ -30,6 +32,8 @@ __all__ = [
     "int8_eps_l34_plain",
     "int8_eps_pallas",
     "int8_eps_pallas_fused",
+    "int8_lin1",
+    "int8_lin1_plain",
     "int8_linear_softplus",
     "int8_linear_softplus_plain",
     "launch_counts",

@@ -72,20 +72,27 @@ def _start(name: str):
 
 
 def _finish(name: str, started) -> str:
-    """Wait for nvcc; its log, or "" when nothing was built."""
+    """Wait for nvcc; its log, kept beside the library so that a source
+    built earlier still reports its registers and spills."""
     if started is None:
-        return ""
+        log_path = _target(name)[:-3] + ".log"
+        if not os.path.exists(log_path):
+            return ""
+        with open(log_path) as f:
+            return f.read()
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)
     return log
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources, one nvcc each, all started together;
-    returns each one's nvcc log ("" where it was already built)."""
+    returns each one's nvcc log."""
     names = list(names)
     with _lock:
         started = [(n, _start(n)) for n in names]

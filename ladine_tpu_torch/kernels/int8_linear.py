@@ -7,13 +7,15 @@ and lin3 (zero-point 127, from lin2's row max) are one kernel launch each
 for all members (``csrc/int8_linear.cu``).
 
 A CPU tensor goes through :func:`int8_linear_softplus_plain`; a CUDA tensor
-goes through the kernel, or the wrapper raises.
+goes through the kernel, or the wrapper raises. Which tiles a launch of
+the GEMM covers, and which K steps each block of a cluster sums, is
+:func:`gemm_plan`, a pure function of the shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +33,30 @@ from ladine_tpu_torch.kernels.int8 import (
 
 _NAME = "int8_linear"
 _KERNEL = "int8_linear_softplus"
+TILE_ROWS, TILE_COLS, STEP_K = 160, 128, 64  # BM, BN, BK of csrc/int8_gemm.cuh
+CLUSTER = 4  # blocks of a cluster that split the K steps of one tile (CLUSTER there)
+
+
+class GemmPlan(NamedTuple):
+    """A launch of the int8 GEMM (``csrc/int8_gemm.cuh``): row x column
+    tiles of TILE_ROWS x TILE_COLS per member, each computed by a cluster
+    of CLUSTER blocks; rank q sums the STEP_K-byte steps q, q + CLUSTER,
+    ... of K, ``steps[q]`` of them."""
+
+    row_tiles: int
+    col_tiles: int
+    steps: Tuple[int, ...]
+    blocks: int
+
+
+def gemm_plan(m: int, r: int, k: int, n: int) -> GemmPlan:
+    """The GEMM's launch for M members of an (R, K) x (K, N) product. A
+    short K can leave the last ranks no step (their partial sums are then
+    zeros)."""
+    n_steps = -(-k // STEP_K)
+    steps = tuple(max(0, -(-(n_steps - q) // CLUSTER)) for q in range(CLUSTER))
+    row_tiles, col_tiles = -(-r // TILE_ROWS), -(-n // TILE_COLS)
+    return GemmPlan(row_tiles, col_tiles, steps, CLUSTER * row_tiles * col_tiles * m)
 
 
 def int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +77,7 @@ def _lib():
     lib = _build.load(_NAME)
     fn = lib.int8_linear_softplus_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -86,7 +112,7 @@ def check_weight(kernel: str, w_q, m: int, k: int, *per_column) -> int:
     n = w_q.shape[2]
     if w_q.stride() != (n * k, 1, k):
         raise ValueError(f"{kernel}: the weight must be stored K-contiguous, as quantize_weight makes it")
-    if (n + 127) // 128 > 65535:
+    if (n + TILE_COLS - 1) // TILE_COLS > 65535:
         raise ValueError(f"{kernel}: too many columns for the grid")
     for v in per_column:
         if v is None:
@@ -126,13 +152,14 @@ def int8_linear_softplus(
     if h.numel() == 0:
         return h, hmax
     xq = torch.empty((m, r, k), dtype=torch.int8, device=x.device)
+    plan = gemm_plan(m, r, k, n)
     launch = _lib()
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), xmax.data_ptr(), xq.data_ptr(), w_q.data_ptr(), s.data_ptr(),
             c.data_ptr(), None if colsum is None else colsum.data_ptr(), h.data_ptr(),
-            hmax.data_ptr(), m, r, k, n, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            hmax.data_ptr(), m, r, k, n, plan.row_tiles, plan.col_tiles,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1

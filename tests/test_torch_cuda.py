@@ -12,9 +12,9 @@ attention the probabilities are rounded to bf16 too, as in the plain
 version, and can round apart where the sums differ in order). The int8
 kernels pick the same int8 codes as their plain versions (same IEEE
 division, round half to even) and sum them exactly in int32, so K4 differs
-only where softplus rounds apart (1e-5 in fp32); K5's lin1 sums its 4 terms
-in another order, which can flip one code of h1 (1e-3), and its lin4 sums
-with atomics in no fixed order (1e-4).
+only where softplus rounds apart (1e-5 in fp32); K5's lin1 pass does the
+plain version's float32 arithmetic in the same order, so its codes are equal
+bit for bit, and its lin4 sums with atomics in no fixed order (1e-4).
 """
 
 import numpy as np
@@ -30,6 +30,8 @@ from ladine_tpu_torch.kernels import (
     int8_eps_l12_plain,
     int8_eps_l34,
     int8_eps_l34_plain,
+    int8_lin1,
+    int8_lin1_plain,
     int8_linear_softplus,
     int8_linear_softplus_plain,
     launch_counts,
@@ -211,3 +213,102 @@ def test_int8_kernels_raise_instead_of_falling_back(cuda):
                      c[:, :1].expand(1, 64).contiguous(), w_q, s, c)
     with pytest.raises(TypeError):  # w4 in another type than h2
         int8_eps_l34(x, xmax, w_q, s, c, colsum, torch.zeros(1, 32, 2, device=cuda, dtype=torch.bfloat16))
+
+
+def _lin1_inputs(rng, m, r, k, ci, device, dtype):
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    return (t(rng.standard_normal((m, r, k)), dtype), t(rng.random((m, r, ci)), dtype),
+            t(rng.standard_normal((m, ci, k)) * 0.5, dtype), t(rng.uniform(0.5, 1.5, (m, k))),
+            t(rng.standard_normal((m, k)) * 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [64, 4096, 8192])  # 8192: 512 threads, the most a block takes
+@pytest.mark.parametrize("ci", [2, 4])
+def test_int8_lin1_pass_codes_equal_plain(cuda, ci, k, dtype):
+    """K5a's lin1 pass alone: the same int8 codes and max|h1| as its plain
+    version, bit for bit (no tolerance: the same float32 arithmetic in the
+    same order, IEEE division, round half to even)."""
+    args = _lin1_inputs(np.random.default_rng(13), 2, 37, k, ci, cuda, dtype)
+    launch_counts.clear()
+    xq, xmax = int8_lin1(*args)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_lin1"] == 1 and xq.dtype == torch.int8 and xmax.shape == (2, 37, 1)
+    ref_q, ref_m = int8_lin1_plain(*args)
+    assert torch.equal(xq, ref_q)
+    assert torch.equal(xmax, ref_m)
+
+
+@pytest.mark.cuda
+def test_int8_lin1_pass_raises_on_a_k_it_does_not_take(cuda):
+    """More than 512 threads a row (K > 8192): the wrappers raise before
+    any launch instead of falling back."""
+    k = 16 * 513
+    f, y_in, w1, a1, c1 = _lin1_inputs(np.random.default_rng(14), 1, 2, k, 4, cuda, torch.bfloat16)
+    w_q2 = torch.zeros(1, 8, k, dtype=torch.int8, device=cuda).transpose(1, 2)
+    s2 = torch.ones(1, 8, device=cuda)
+    launch_counts.clear()
+    with pytest.raises(ValueError, match="lin1 pass takes K"):
+        int8_lin1(f, y_in, w1, a1, c1)
+    with pytest.raises(ValueError, match="lin1 pass takes K"):
+        int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, s2)
+    assert launch_counts["int8_lin1"] == 0 and launch_counts["int8_eps_fused_l12"] == 0
+
+
+GEMM_SHAPES = [(2, r, 4096, 4096) for r in (1, 20, 160, 161, 1400)] + [
+    (2, 20, 80, 200), (1, 161, 272, 136), (2, 23, 64, 136)]  # ragged N and K: ranks with no step
+
+
+
+def _within_one_bf16_ulp(out, ref):
+    """|out - ref| <= 2^-7 |ref|: at most one bf16 ulp apart (the int8 codes
+    and int32 sums are exact; only a softplus rounding could differ)."""
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zp", [False, True], ids=["symmetric", "zero-point"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=str)
+def test_int8_gemm_through_k4_at_any_row_count_and_ragged_k_n(cuda, shape, zp):
+    """The GEMM through K4 in bf16: below, at and past one 160-row tile, and
+    a ragged N and K, where some ranks of a cluster have no K step
+    (kernels/int8_linear.py::gemm_plan)."""
+    x, xmax, w_q, s, c, colsum, _, _ = int8_layer_inputs(np.random.default_rng(15), *shape, cuda,
+                                                         torch.bfloat16, zp)
+    launch_counts.clear()
+    h, hmax = int8_linear_softplus(x, xmax, w_q, s, c, colsum)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_linear_softplus"] == 1
+    ref_h, ref_m = int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum)
+    _within_one_bf16_ulp(h, ref_h)
+    _within_one_bf16_ulp(hmax, ref_m)
+    assert torch.equal(hmax, h.float().amax(-1, keepdim=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=str)
+def test_int8_eps_fused_gemm_at_any_row_count_and_ragged_k_n(cuda, shape):
+    """K5a (lin1 pass + the GEMM's STORE epilogue) and K5b (the LIN4
+    epilogue) in bf16 at the same shapes: h2 within one bf16 ulp, and lin4's
+    sums within fp32 reordering by atomics (1e-4)."""
+    m, r, k, n = shape
+    rng = np.random.default_rng(16)
+    f, _, w_q2, s2, c2, _, y_in, w1 = int8_layer_inputs(rng, m, r, k, k, cuda, torch.bfloat16, False)
+    a1, c1 = (torch.from_numpy(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32)).to(cuda) for _ in range(2))
+    launch_counts.clear()
+    h2, hmax2 = int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l12"] == 1
+    ref_h2, ref_m2 = int8_eps_l12_plain(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    _within_one_bf16_ulp(h2, ref_h2)
+    _within_one_bf16_ulp(hmax2, ref_m2)
+
+    _, _, w_q3, s3, c3, cs3, _, _ = int8_layer_inputs(rng, m, r, k, n, cuda, torch.bfloat16, True)
+    w4 = torch.from_numpy(rng.standard_normal((m, n, 2)).astype(np.float32) * n**-0.5).to(cuda, torch.bfloat16)
+    out = int8_eps_l34(ref_h2, ref_m2, w_q3, s3, c3, cs3, w4)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l34"] == 1
+    _close(out, int8_eps_l34_plain(ref_h2, ref_m2, w_q3, s3, c3, cs3, w4), 1e-4)
