@@ -2,6 +2,7 @@
 //
 //   out[m] = softplus((x[m] @ w[m]) * a[m] + c[m]) [* mult[m]]
 //   x: (M, R, K)  w: (M, K, N)  a, c: (M, N) fp32  mult, out: (M, R, N)
+//   mult in x's dtype, or fp32 beside bf16 x in the small_k body
 //
 // Replaces the TPU kernel ladine_tpu/kernels/fused_linear.py::fused_linear_act
 // (bodies _kernel and _kernel_mult). It is the eps layer of every reverse
@@ -11,17 +12,19 @@
 // shape and dtype (kernels/fused_linear.py::plan):
 //
 // small_k (K <= 16, both dtypes; lin1). An outer product and an elementwise
-// pass: at the path's shape (M = 5, R = 160, N = 4096, bf16) it moves 13.5 MB
-// (mult read, out written, w, a, c) and does 26 MFLOP, so the bytes bound it
-// at 0.0040 ms on 3.35 TB/s. Each thread computes 8 consecutive n of one row
-// of one member (a flat index over M x R x N/8, so the member loop is in the
-// grid): w's K x 8 slice and x's K values in registers, the K sum in fp32,
-// mult read and out written as 16-byte vectors (element by element where
-// N % 8 != 0 or a pointer is not 16-byte aligned). On the path mult comes
-// from device memory (lin2 and lin3 stream 168 MB through L2 every step), so
-// one row a thread keeps the most loads of it in flight: 4 rows a thread,
-// with w, a and c read once for them, was faster with mult in L2 and slower
-// on the path.
+// pass. Its gate mult is the encoder's features, fp32 as flax's last
+// BatchNorm leaves them (the TPU kernel multiplies by them in fp32), so beside
+// bf16 x and w it reads mult in fp32: at the path's shape (M = 5, R = 160,
+// N = 4096) it moves 20.0 MB (mult read, out written, w, a, c) and does 26
+// MFLOP, so the bytes bound it at 0.0060 ms on 3.35 TB/s. Each thread
+// computes 8 consecutive n of one row of one member (a flat index over
+// M x R x N/8, so the member loop is in the grid): w's K x 8 slice and x's K
+// values in registers, the K sum in fp32, mult read and out written as
+// 16-byte vectors (element by element where N % 8 != 0 or a pointer is not
+// 16-byte aligned). On the path mult comes from device memory (lin2 and lin3
+// stream 168 MB through L2 every step), so one row a thread keeps the most
+// loads of it in flight: 4 rows a thread, with w, a and c read once for them,
+// was faster with mult in L2 and slower on the path.
 //
 // mma (K > 16, bf16; lin2 and lin3). At R = 160 rows a member the call reads
 // each member's 4096 x 4096 weight once, 168 MB (0.050 ms at 3.35 TB/s; 0.054
@@ -154,11 +157,11 @@ __device__ __forceinline__ void load8_masked(const T* p, float* v, int valid, bo
   for (int e = 0; e < 8; ++e) v[e] = e < valid ? to_f(p[e]) : 0.f;
 }
 
-template <typename T>
+template <typename T, typename MT>
 __global__ void __launch_bounds__(SK_THREADS)
 fused_linear_small_k_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const float* __restrict__ a, const float* __restrict__ c,
-                            const T* __restrict__ mult, T* __restrict__ out, int M, int R, int K,
+                            const MT* __restrict__ mult, T* __restrict__ out, int M, int R, int K,
                             int N, bool vec) {
   const int nv = (N + 7) / 8;
   const long long i = (long long)blockIdx.x * SK_THREADS + threadIdx.x;
@@ -200,13 +203,13 @@ fused_linear_small_k_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, typename MT>
 int launch_small_k(const void* x, const void* w, const void* a, const void* c, const void* mult,
                    void* out, int M, int R, int K, int N, bool vec, cudaStream_t s) {
   long long threads = (long long)M * R * ((N + 7) / 8);
-  fused_linear_small_k_kernel<T><<<(unsigned)((threads + SK_THREADS - 1) / SK_THREADS), SK_THREADS, 0, s>>>(
+  fused_linear_small_k_kernel<T, MT><<<(unsigned)((threads + SK_THREADS - 1) / SK_THREADS), SK_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(c), static_cast<const T*>(mult), static_cast<T*>(out), M, R, K, N, vec);
+      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<T*>(out), M, R, K, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,16 +446,20 @@ int launch_simt(const void* x, const void* w, const void* a, const void* c, cons
 
 }  // namespace
 
-// body: 0 small_k (either dtype), 1 mma (bf16), 2 simt (fp32); any other
-// pairing is refused with cudaErrorInvalidValue.
+// body: 0 small_k (either dtype), 1 mma (bf16), 2 simt (fp32); mult_f32: mult
+// is fp32 beside bf16 x (small_k only). Any other pairing is refused with
+// cudaErrorInvalidValue.
 extern "C" int fused_linear_act_launch(const void* x, const void* w, const void* a, const void* c,
                                        const void* mult, void* out, int M, int R, int K, int N,
-                                       int is_bf16, int vec, int body, void* stream) {
+                                       int is_bf16, int mult_f32, int vec, int body, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == SMALL_K && K <= MAX_SMALL_K) {
-    if (is_bf16) return launch_small_k<bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-    return launch_small_k<float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+    if (is_bf16 && mult_f32)
+      return launch_small_k<bf16, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+    if (is_bf16) return launch_small_k<bf16, bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+    return launch_small_k<float, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   }
+  if (mult_f32 && is_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (body == MMA && is_bf16) return launch_mma(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   if (body == SIMT && !is_bf16) return launch_simt(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -66,11 +66,13 @@ def nested_ensemble_sample(
     """
     m, b, c = y0_hat_members.shape
     k = mc_trials
+    # f's dtype is the dtype the int8 paths store their hidden rows in, as in
+    # the JAX engine: float32 from encode (its last BatchNorm promotes), the
+    # compute dtype under use_int8_encode
     if use_int8_encode:
-        # f's dtype is the compute dtype the hidden activations are stored in
         f = int8_encode(model, x_flat, qenc).to(model.enc_lin3.weight.dtype)
     else:
-        f = model.encode(x_flat)  # (M, B, F)
+        f = model.encode(x_flat)  # (M, B, F) float32
     # materialized (the kernel reads it as lin1's gate): at B = 1 the reshape
     # of the expanded view would stay a stride-0 view
     f_rows = f.unsqueeze(1).expand(m, k, b, f.shape[-1]).reshape(m, k * b, f.shape[-1]).contiguous()

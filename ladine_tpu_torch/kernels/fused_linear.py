@@ -12,10 +12,12 @@ kernel, or the wrapper raises.
 
 The kernel has three bodies, chosen by shape and dtype (:func:`plan`):
 ``small_k`` for K <= 16 in either dtype (lin1, K = 4: an outer product and
-an elementwise pass), ``mma`` for larger K in bfloat16 (lin2 and lin3:
-``mma.sync`` tiles of 160 rows x 128 columns, K split over a cluster pair of
-blocks, each weight strip read once), ``simt`` for larger K in float32. Each
-launch counts as one ``fused_linear_act``.
+an elementwise pass; its gate ``mult`` may be float32 beside bfloat16 x and
+w, since the features are float32 and the JAX kernel multiplies by them in
+float32), ``mma`` for larger K in bfloat16 (lin2 and lin3: ``mma.sync``
+tiles of 160 rows x 128 columns, K split over a cluster pair of blocks,
+each weight strip read once), ``simt`` for larger K in float32. Each launch
+counts as one ``fused_linear_act``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def _lib():
     lib = _build.load(_NAME)
     fn = lib.fused_linear_act_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -58,13 +60,18 @@ def _lib():
 def _check(x, w, a, c, mult):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{_KERNEL}: x must be float32 or bfloat16, got {x.dtype}")
-    if w.dtype != x.dtype or (mult is not None and mult.dtype != x.dtype):
-        raise TypeError(f"{_KERNEL}: w and mult must have x's dtype {x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{_KERNEL}: w must have x's dtype {x.dtype}")
+    if mult is not None and mult.dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{_KERNEL}: mult must be float32 or x's dtype {x.dtype}, got {mult.dtype}")
     if a.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"{_KERNEL}: a and c must be float32")
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"{_KERNEL}: x must be (M, R, K) and w (M, K, N)")
     m, r, k = x.shape
+    if mult is not None and mult.dtype != x.dtype and k > SMALL_K:
+        raise TypeError(f"{_KERNEL}: a float32 mult beside {x.dtype} x is taken for K <= {SMALL_K} "
+                        f"only (the small_k body), got K = {k}")
     if w.shape[:2] != (m, k):
         raise ValueError(f"{_KERNEL}: shapes x {tuple(x.shape)} and w {tuple(w.shape)} disagree")
     n = w.shape[2]
@@ -105,10 +112,11 @@ def fused_linear_act(
     """softplus((x @ w) * a + c) [* mult] for every member at once.
 
     x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N) or
-    None; x, w and mult share one dtype (float32 or bfloat16). Returns
-    (M, R, N) in x.dtype. On the card the kernel body follows from K and
-    the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16 and
-    simt in float32."""
+    None; x and w share one dtype (float32 or bfloat16), mult has it too or,
+    for K <= 16 (lin1, whose gate is the float32 features), is float32.
+    Returns (M, R, N) in x.dtype. On the card the kernel body follows from K
+    and the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16
+    and simt in float32."""
     if x.device.type == "cpu":
         return fused_linear_act_plain(x, w, a, c, mult)
     m, r, k, n = _check(x, w, a, c, mult)
@@ -123,7 +131,8 @@ def fused_linear_act(
         err = launch(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
             None if mult is None else mult.data_ptr(), out.data_ptr(),
-            m, r, k, n, int(x.dtype == torch.bfloat16), int(vec), _BODIES[body], stream,
+            m, r, k, n, int(x.dtype == torch.bfloat16), int(mult is not None and mult.dtype != x.dtype),
+            int(vec), _BODIES[body], stream,
         )
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1

@@ -8,8 +8,10 @@ one kernel launch per layer for all members (``kernels/fused_eps.py``).
 
 Dense weights keep the flax layout ``(M, in, out)``, which is the layout the
 eps kernel reads. BatchNorm parameters, running statistics and the timestep
-gates are float32 whatever the compute dtype; the eval affine is applied in
-float32 and cast back.
+gates are float32 whatever the compute dtype. As flax's BatchNorm does, the
+eval affine promotes its input to float32 and returns float32, so ``encode``
+gives float32 features in every compute dtype; the next ``StackedLinear``
+casts its input to the weight dtype, as a flax ``Dense(dtype=...)`` does.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class StackedBatchNorm(nn.Module):
         # flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias
         mul = torch.rsqrt(self.running_var + _BN_EPS) * self.weight
         y = (x.float() - self.running_mean.unsqueeze(-2)) * mul.unsqueeze(-2)
-        return (y + self.bias.unsqueeze(-2)).to(x.dtype)
+        return y + self.bias.unsqueeze(-2)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -116,6 +118,7 @@ class ConditionalModel(nn.Module):
             raise NotImplementedError("the port's eps takes the guidance y_hat (guidance=True)")
         dev = resolve_device(device)
         self.members, self.data_dim, self.y_dim = members, data_dim, y_dim
+        self.feature_dim, self.hidden_dim, self.n_steps = feature_dim, hidden_dim, n_steps
         lin = lambda i, o: StackedLinear(members, i, o, dev, dtype)  # noqa: E731
         bn = lambda n: StackedBatchNorm(members, n, dev)  # noqa: E731
         cl = lambda i, o: ConditionalLinear(members, i, o, n_steps, dev, dtype)  # noqa: E731
@@ -128,7 +131,7 @@ class ConditionalModel(nn.Module):
         self.lin4 = lin(feature_dim, y_dim)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, data_dim) flat images -> (M, B, feature_dim) features.
+        """(B, data_dim) flat images -> (M, B, feature_dim) float32 features.
 
         Images are flattened channel-last (NHWC ``reshape(B, -1)``), as the
         JAX package flattens them."""

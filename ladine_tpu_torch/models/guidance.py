@@ -39,8 +39,10 @@ class SEViTGuidance(nn.Module):
                 f"({num_members}): member i taps after block i"
             )
         dev = resolve_device(device)
-        self.num_members = num_members
-        self.img_size = img_size
+        # the geometry, as Predictor.save records it
+        self.num_classes, self.num_members, self.vit_depth = num_classes, num_members, vit_depth
+        self.img_size, self.patch_size, self.embed_dim = img_size, patch_size, embed_dim
+        self.num_heads, self.mlp_hidden_dims = num_heads, tuple(mlp_hidden_dims)
         self.vit = ViT(num_classes, img_size, patch_size, embed_dim, vit_depth, num_heads,
                        device=dev, dtype=dtype)
         in_dim = self.vit.num_patches * embed_dim

@@ -146,6 +146,25 @@ def test_fused_linear_act_small_k_body_matches_plain(cuda, dtype, k, shape):
         _close(out, fused_linear_act_plain(x, w, a, c, g), tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 160, 4096), (2, 9, 17), (1, 1, 8)], ids=["path", "ragged-N", "one-row"])
+def test_fused_linear_act_small_k_body_takes_a_float32_gate(cuda, shape):
+    """lin1 of the bf16 path: bf16 y_in and w1, the float32 features as the
+    gate (the encoder's last BatchNorm returns float32, as flax's does)."""
+    m, r, n = shape
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(13), m, r, 4, n))
+    x, w = x.bfloat16(), w.bfloat16()
+    launch_counts.clear()
+    out = fused_linear_act(x, w, a, c, mult)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
+    _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
+    # the mma body takes its gate in x's dtype only
+    x2, w2, a2, c2, mult2 = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(14), m, r, 32, n))
+    with pytest.raises(TypeError, match="small_k"):
+        fused_linear_act(x2.bfloat16(), w2.bfloat16(), a2, c2, mult2)
+
+
 INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136)]
 
 
@@ -312,3 +331,39 @@ def test_int8_eps_fused_gemm_at_any_row_count_and_ragged_k_n(cuda, shape):
     torch.cuda.synchronize()
     assert launch_counts["int8_eps_fused_l34"] == 1
     _close(out, int8_eps_l34_plain(ref_h2, ref_m2, w_q3, s3, c3, cs3, w4), 1e-4)
+
+
+@pytest.mark.cuda
+def test_save_load_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 predictor saved from the card and loaded back onto it predicts
+    the same, bit for bit, on the same generator; loaded at ``serving`` with
+    the K5 flags it runs K5a and K5b once a step."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch.models import init_random_
+
+    gen = torch.Generator().manual_seed(4)
+    geometry = dict(num_classes=2, num_members=2, vit_depth=2, img_size=32, patch_size=8, embed_dim=64,
+                    num_heads=2, mlp_hidden_dims=(64, 32, 16))
+    modules = []
+    for build in (lambda **kw: L.SEViTGuidance(**geometry, **kw),
+                  lambda **kw: L.ConditionalModel(2, 32 * 32 * 3, 64, 64, 2, 51, **kw)):
+        cpu = build(device="cpu")
+        init_random_(cpu, gen)
+        modules.append(build(device=cuda, dtype=torch.bfloat16))  # BatchNorm and gates stay float32
+        modules[-1].load_state_dict(cpu.state_dict())
+    pred = L.Predictor(guidance=modules[0], model=modules[1], mc_trials=4, ddim_steps=0, device=cuda,
+                       sched=L.DiffusionSchedule.create("linear", 50, device=cuda))
+    images = np.random.default_rng(17).random((3, 32, 32, 3)).astype(np.float32)
+    before = pred.predict(images, generator=torch.Generator(device=cuda).manual_seed(9))
+    pred.save(str(tmp_path / "artifact"))
+    loaded = L.Predictor.load(str(tmp_path / "artifact"), device=cuda)
+    assert loaded.model.lin2.linear.weight.is_cuda and loaded.model.lin2.linear.weight.dtype == torch.bfloat16
+    after = loaded.predict(images, generator=torch.Generator(device=cuda).manual_seed(9))
+    for k in before:
+        np.testing.assert_array_equal(after[k], before[k], err_msg=k)
+    fused = L.Predictor.load(str(tmp_path / "artifact"), preset="serving", use_int8_pallas=True,
+                             pallas_fuse_ends=True, ddim_steps=5, device=cuda)
+    launch_counts.clear()
+    out = fused.predict(images)
+    assert launch_counts["int8_eps_fused_l12"] == launch_counts["int8_eps_fused_l34"] == 5
+    assert np.isfinite(out["probs"]).all()

@@ -21,7 +21,7 @@ from ladine_tpu.ops import DiffusionSchedule as JaxSchedule
 import torch
 
 from ladine_tpu_torch.infer import Predictor
-from ladine_tpu_torch.infer.serve import PRESETS
+from ladine_tpu_torch.infer.serve import PRESETS, call_seed
 from ladine_tpu_torch.models import ConditionalModel, SEViTGuidance
 from ladine_tpu_torch.ops import DiffusionSchedule
 from ladine_tpu_torch.utils import guidance_from_flax, members_from_flax
@@ -86,6 +86,19 @@ def test_predict_seeds_each_call_afresh(parts):
     a, b = ours.predict(images), ours.predict(images)
     assert not np.allclose(a["probs"], b["probs"])
     np.testing.assert_allclose(a["probs"].sum(-1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [2**31, 2**32, 2**40], ids=["2^31", "2^32", "2^40"])
+def test_predict_takes_any_seed(parts, seed):
+    """Seeds the JAX Predictor takes (``PRNGKey(seed)``): the port mixes the
+    seed and the call counter into one 64-bit generator seed."""
+    jax_ref, ours = _pair(parts, ddim_steps=5, seed=seed)
+    images = np.random.default_rng(4).random((2, 16, 16, 3)).astype(np.float32)
+    jax_ref.predict(images)
+    a, b = ours.predict(images), ours.predict(images)
+    assert all(np.isfinite(v).all() for v in a.values())
+    assert not np.allclose(a["probs"], b["probs"])
+    assert call_seed(seed, 0) != call_seed(seed, 1) != call_seed(seed + 1, 1)
 
 
 def test_head_indices_and_input_validation(parts):
