@@ -28,17 +28,23 @@ Phases, each fatal on failure (no failure is caught):
    and the int8 chain through K4 and through K5.
 4. The serving path at full width: ViT-B/16 guidance + 5 mapping MLPs + 5
    linear-arch members (random weights from a seeded generator, drawn on
-   the card), the parity preset (1000-step ancestral chain, 20 MC trials),
-   3 requests of batch 8. Checks finite outputs, probs rows summing to 1,
-   votes in range, and the launch counts: fused_linear_act 3 x 1000 and
+   the card), the parity preset (1000-step ancestral chain, 20 MC trials).
+   ``Predictor.predict`` replays one CUDA graph per batch shape
+   (``infer/graphs.py``). A request of batch 8 runs through the eager
+   serving program and through the graph on the same generator: the
+   outputs must be equal exactly (K5: see ``K5_RTOL``), with
+   both request times, a torch.profiler trace of each (device time by
+   kernel and by source, busy share, device launches), the launch counts
+   of each and the graph's capture seconds. Then 3 graphed requests of
+   batch 8. Checks finite outputs, probs rows summing to 1, votes in
+   range, and the launch counts: fused_linear_act 3 x 1000 and
    flash_attention 5 per request. Then one request through the default
-   DDIM-50 sampler, the stages of one parity request (guidance heads,
-   member encoders, reverse chain) and a torch.profiler trace of one parity
-   request (device time by kernel and by source, device busy share). Then,
-   on the same modules, one batch-8 request each at the int8 operating points
-   ``serving``, ``fast``, ``serving`` + ``use_int8_pallas`` (K4, 100
-   launches) and + ``pallas_fuse_ends`` (K5a and K5b, 50 each), each with
-   the same checks, exact launch counts, its stages, peak memory and trace.
+   DDIM-50 sampler and the stages of one eager parity request (guidance
+   heads, member encoders, reverse chain). Then, on the same modules, the
+   eager and the graphed request at each int8 operating point ``serving``,
+   ``fast``, ``serving`` + ``use_int8_pallas`` (K4, 100 launches) and +
+   ``pallas_fuse_ends`` (K5a and K5b, 50 each), each with the same checks,
+   exact launch counts, its stages, peak memory and traces.
 5. The artifact and batching surface at full width, on the phase-4 modules:
    reference-layout state dicts exported from them and read back into fresh
    modules (``utils/torch_convert.py``), every tensor bit-equal; one parity
@@ -51,6 +57,17 @@ Phases, each fatal on failure (no failure is caught):
    then a ``MicroBatcher(max_batch=8)`` in front of the loaded predictor,
    fed requests of 1, 3 and 4 images from three threads: each caller gets
    its own rows of fewer device calls than requests.
+6. The AOT bundle at full width, on the phase-4 modules:
+   ``Predictor.export_serving`` of the parity predictor at batch 8 (K1 3000,
+   K3 5 launches a request) and of ``serving`` + ``use_int8_pallas`` +
+   ``pallas_fuse_ends`` at ``MicroBatcher.bucket_sizes(8)`` (K5a and K5b
+   50, K3 5), each into a directory beside this script (``_smoke_bundle``,
+   deleted after its checks: ~12.6 GiB of free disk), with the export
+   seconds per batch size, the bundle's size and the seconds of
+   ``ExportedPredictor.load``. The bundle's batch-8 request must equal the
+   live predictor's on the same generator (exactly; K5: ``K5_RTOL``); then a
+   ``MicroBatcher`` in front of the loaded K5 bundle takes requests of 1,
+   3 and 4 images from three threads.
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -78,6 +95,9 @@ FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
 BATCH, REQUESTS = 8, 3
 PARITY_SEED = 1234  # the generator of phase 4's first parity request, and of phase 5's
 ARTIFACT_DIR = "_smoke_artifact"  # phase 5's Predictor.save, beside this script (gitignored)
+BUNDLE_DIR = "_smoke_bundle"  # phase 6's export_serving, beside this script (gitignored)
+EAGER_SEED = 77  # the generator of phase 4's eager-against-graph requests
+OUTPUTS = ("probs", "majority_vote", "piw", "mc_variance")
 
 
 def fail(msg: str) -> int:
@@ -407,7 +427,7 @@ def run_full_width():
 
     rng = np.random.default_rng(0)
     batches = [rng.random((BATCH, 224, 224, 3), dtype="float32") for _ in range(REQUESTS)]
-    pred.predict(batches[0][:1])  # warm-up (cuBLAS/cuDNN handles, allocator)
+    eager_vs_graph(pred, batches[0], "parity", {"fused_linear_act": 3000, "flash_attention": 5})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -422,7 +442,7 @@ def run_full_width():
             parity_out = out
         d1 = K.launch_counts["fused_linear_act"] - before.get("fused_linear_act", 0)
         d3 = K.launch_counts["flash_attention"] - before.get("flash_attention", 0)
-        print(f"  parity request {i}: batch {BATCH}, {dt * 1e3:.1f} ms "
+        print(f"  parity request {i} (graph): batch {BATCH}, {dt * 1e3:.1f} ms "
               f"({BATCH / dt:.2f} img/s); launches fused_linear_act={d1} flash_attention={d3}")
         check_outputs(out, BATCH)
         assert d1 == 3 * 1000, d1  # 999 scan steps + the final eps, 3 layers each
@@ -431,18 +451,93 @@ def run_full_width():
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     ddim = L.Predictor(guidance=guidance, model=model, sched=sched, mc_trials=20)  # DDIM-50, eta 1
+    ddim.predict(batches[0])  # captures the batch's graph
     t0 = time.perf_counter()
     out = ddim.predict(batches[0])
     dt = time.perf_counter() - t0
     assert np.isfinite(out["probs"]).all()
-    print(f"  DDIM-50 request: batch {BATCH}, {dt * 1e3:.1f} ms ({BATCH / dt:.2f} img/s)")
+    print(f"  DDIM-50 request (graph): batch {BATCH}, {dt * 1e3:.1f} ms ({BATCH / dt:.2f} img/s)")
+    del ddim
     stages(pred, batches[0], "parity")
-    trace(pred, batches[0], "parity")
     for name, (_, _, path_kernels) in INT8_REQUESTS.items():
         counts = serve_int8(guidance, model, sched, batches[0], name)
         launches.update({k: counts[k] for k in path_kernels})
     return launches, dict(guidance=guidance, model=model, sched=sched, images=batches[0],
                           parity_out=parity_out)
+
+
+def generator(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def eager_request(pred, images, seed: int):
+    """A request through the serving program run eagerly (what the graph
+    captures), on the noise ``predict`` draws from a generator of ``seed``."""
+    noise = torch.randn(pred._program.noise_shape(len(images)), generator=generator(seed), device="cuda")
+    with torch.inference_mode():
+        outs = pred._program(torch.as_tensor(images, device="cuda"), noise)
+        return {k: o.cpu().numpy() for k, o in zip(OUTPUTS, outs)}
+
+
+# K5b's lin4 sums in fp32 atomics in no fixed order, so two eager runs of a
+# K5 request already differ (~1e-7 relative in one eps), and the 50-step
+# chain carries that to the outputs: a K5 request is held to another within
+# rtol 1e-4 (atol 1e-6) and equal votes, beside the spread of two eager runs.
+K5_RTOL = 1e-4
+
+
+def same_outputs(got, want, rtol: float) -> bool:
+    """Equal outputs: exactly, or within ``rtol`` (atol 1e-6) with equal
+    votes."""
+    return all(np.array_equal(got[k], want[k]) if rtol == 0 or k == "majority_vote"
+               else np.allclose(got[k], want[k], rtol=rtol, atol=1e-6) for k in want)
+
+
+def spread(a, b) -> str:
+    """The largest abs and relative difference of each float output."""
+    return ", ".join(f"{k} {np.abs(a[k] - b[k]).max():.2e} / "
+                     f"{(np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1e-6)).max():.2e}"
+                     for k in ("probs", "piw", "mc_variance"))
+
+
+def eager_vs_graph(pred, images, label, want, rtol: float = 0.0):
+    """Phase 4: one request of batch 8 through the eager serving program
+    and through ``predict``'s CUDA graph, on the same generator: equal
+    outputs, each path's request time, trace and launch counts (``want``,
+    each kernel's launches a request), and the capture seconds."""
+    from ladine_tpu_torch import kernels as K
+
+    want = {k: want.get(k, 0) for k in KERNELS}
+    eager_request(pred, images, EAGER_SEED)  # warm-up
+    torch.cuda.synchronize()
+    K.launch_counts.clear()
+    t0 = time.perf_counter()
+    eager = eager_request(pred, images, EAGER_SEED)
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    eager_counts = {k: K.launch_counts[k] for k in KERNELS}
+    t0 = time.perf_counter()
+    pred.predict(images, generator=generator(EAGER_SEED))  # warm-up and capture, then a replay
+    first_ms = (time.perf_counter() - t0) * 1e3
+    capture_s = list(pred._graphs.capture_seconds.values())[-1]
+    K.launch_counts.clear()
+    t0 = time.perf_counter()
+    graphed = pred.predict(images, generator=generator(EAGER_SEED))
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    graph_counts = {k: K.launch_counts[k] for k in KERNELS}
+    equal = same_outputs(graphed, eager, rtol)
+    print(f"  {label} request, batch {BATCH}: eager {eager_ms:.1f} ms, graph {graph_ms:.1f} ms "
+          f"({BATCH / graph_ms * 1e3:.2f} img/s); first call {first_ms:.1f} ms of which warm-up and capture "
+          f"{capture_s:.2f} s; outputs {'equal' if equal else 'DIFFER'}"
+          f"{f' (rtol {rtol:g})' if rtol else ' (exactly)'}; launches eager {eager_counts}, graph {graph_counts}")
+    if rtol:
+        print(f"    max abs / rel difference, graph against eager: {spread(graphed, eager)}; "
+              f"two eager runs: {spread(eager_request(pred, images, EAGER_SEED), eager)}")
+    check_outputs(graphed, BATCH)
+    assert equal, (label, spread(graphed, eager))
+    assert eager_counts == want and graph_counts == want, (label, eager_counts, graph_counts, want)
+    trace(lambda: eager_request(pred, images, EAGER_SEED), f"{label} eager")
+    trace(lambda: pred.predict(images, generator=generator(EAGER_SEED)), f"{label} graph")
+    return graphed, graph_counts
 
 
 # The int8 operating points of phase 4: preset, flags, and the launches of
@@ -465,30 +560,18 @@ def serve_int8(guidance, model, sched, images, name):
     same modules as the parity requests (quantization leaves them as they
     are); returns the launches of each kernel in that request."""
     import ladine_tpu_torch as L
-    from ladine_tpu_torch import kernels as K
 
     preset, flags, expected = INT8_REQUESTS[name]
     t0 = time.perf_counter()
     pred = L.Predictor.from_preset(preset, guidance=guidance, model=model, sched=sched, mc_trials=20, **flags)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
-    pred.predict(images[:1])  # warm-up at batch 1: cuBLAS's int8 GEMM pads its rows to 17
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.launch_counts.clear()
-    t0 = time.perf_counter()
-    out = pred.predict(images)
-    dt = time.perf_counter() - t0
-    counts = {k: K.launch_counts[k] for k in KERNELS}
-    print(f"  {name} request: batch {BATCH}, DDIM-{pred.ddim_steps}, {dt * 1e3:.1f} ms "
-          f"({BATCH / dt:.2f} img/s); resident int8 weights made in {quant_s:.1f} s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
-    check_outputs(out, BATCH)
-    want = {k: expected.get(k, 0) for k in KERNELS}
-    want["flash_attention"] = 5
-    assert counts == want, (name, counts, want)
+    _, counts = eager_vs_graph(pred, images, name, {**expected, "flash_attention": 5},
+                               rtol=K5_RTOL if pred.pallas_fuse_ends else 0.0)
+    print(f"  {name}: DDIM-{pred.ddim_steps}; resident int8 weights made in {quant_s:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     stages(pred, images, name)
-    trace(pred, images, name)
     del pred
     torch.cuda.empty_cache()
     return counts
@@ -522,6 +605,7 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
 
     # 2. the same parity request as phase 4's first, from the fresh modules
     fresh = L.Predictor.from_preset("parity", guidance=fresh_g, model=fresh_m, sched=sched, mc_trials=20)
+    fresh.predict(images, generator=generator(PARITY_SEED))  # captures the batch's graph
     K.launch_counts.clear()
     t0 = time.perf_counter()
     out = fresh.predict(images, generator=torch.Generator(device="cuda").manual_seed(PARITY_SEED))
@@ -529,7 +613,7 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
     counts = {k: K.launch_counts[k] for k in KERNELS}
     assert counts == dict(dict.fromkeys(KERNELS, 0), fused_linear_act=3000, flash_attention=5), counts
     same = {k: bool(np.array_equal(out[k], parity_out[k])) for k in out}
-    print(f"  parity request from the fresh modules: batch {BATCH}, {dt * 1e3:.1f} ms; outputs equal to "
+    print(f"  parity request (graph) from the fresh modules: batch {BATCH}, {dt * 1e3:.1f} ms; outputs equal to "
           f"phase 4's on the same generator: {same}; launches {counts}")
     assert all(same.values()), same
     launches = dict(counts)
@@ -553,14 +637,14 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
         shutil.rmtree(path, ignore_errors=True)
     print(f"  Predictor.save {save_s:.1f} s, {size / 2**30:.2f} GiB in {files} (deleted after the load); "
           f"Predictor.load at serving + use_int8_pallas + pallas_fuse_ends (int8 weights made) {load_s:.1f} s")
-    loaded.predict(images[:1])  # warm-up
+    loaded.predict(images)  # captures the batch's graph
     torch.cuda.synchronize()
     K.launch_counts.clear()
     t0 = time.perf_counter()
     out = loaded.predict(images)
     dt = time.perf_counter() - t0
     counts = {k: K.launch_counts[k] for k in KERNELS}
-    print(f"  loaded serving + K5 request: batch {BATCH}, DDIM-{loaded.ddim_steps}, {dt * 1e3:.1f} ms; "
+    print(f"  loaded serving + K5 request (graph): batch {BATCH}, DDIM-{loaded.ddim_steps}, {dt * 1e3:.1f} ms; "
           f"launches {counts}")
     check_outputs(out, BATCH)
     assert counts == dict(dict.fromkeys(KERNELS, 0), flash_attention=5, int8_eps_fused_l12=50,
@@ -569,10 +653,89 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
         launches[k] += v
 
     # 4. a MicroBatcher in front of the loaded predictor, three callers at once
+    serve_behind_batcher(loaded.predict, "the loaded predictor")
+    return launches
+
+
+def run_bundles(guidance, model, sched, images, parity_out):
+    """Phase 6: the AOT bundle at full width, on the phase-4 modules: the
+    parity bundle at batch 8, then the serving + K5 bundle at the batcher's
+    buckets behind a MicroBatcher. Returns each kernel's launches over the
+    two bundles' batch-8 requests."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.infer import ExportedPredictor, MicroBatcher
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BUNDLE_DIR)
+    launches = dict.fromkeys(KERNELS, 0)
+    cases = (
+        ("parity", dict(preset="parity"), (BATCH,), {"fused_linear_act": 3000, "flash_attention": 5}, 0.0),
+        ("serving + use_int8_pallas + pallas_fuse_ends",
+         dict(preset="serving", use_int8_pallas=True, pallas_fuse_ends=True), MicroBatcher.bucket_sizes(BATCH),
+         {"int8_eps_fused_l12": 50, "int8_eps_fused_l34": 50, "flash_attention": 5}, K5_RTOL),
+    )
+    for label, kw, sizes, want, rtol in cases:
+        live = L.Predictor.from_preset(kw.pop("preset"), guidance=guidance, model=model, sched=sched,
+                                       mc_trials=20, **kw)
+        if label == "parity":
+            live_out = parity_out  # phase 4's first parity request, same generator
+        else:
+            live.predict(images, generator=generator(PARITY_SEED))  # captures the batch's graph
+            live_out = live.predict(images, generator=generator(PARITY_SEED))
+        shutil.rmtree(path, ignore_errors=True)
+        try:
+            t0 = time.perf_counter()
+            export_s = live.export_serving(path, batch_sizes=sizes)
+            total_s = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+            program_mb = {b: os.path.getsize(os.path.join(path, "programs", f"serving_b{b}.pt2")) / 2**20
+                          for b in sizes}
+            del live
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            served = ExportedPredictor.load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        print(f"  {label} bundle: export_serving {total_s:.1f} s (export and save of each program: "
+              f"{ {b: round(v, 1) for b, v in export_s.items()} } s; programs "
+              f"{ {b: round(v, 1) for b, v in program_mb.items()} } MiB), {size / 2**30:.2f} GiB on disk "
+              f"(deleted after the load); ExportedPredictor.load {load_s:.1f} s")
+        served.predict(images, generator=generator(PARITY_SEED))  # captures the batch's graph
+        K.launch_counts.clear()
+        t0 = time.perf_counter()
+        out = served.predict(images, generator=generator(PARITY_SEED))
+        dt = time.perf_counter() - t0
+        counts = {k: K.launch_counts[k] for k in KERNELS}
+        equal = same_outputs(out, live_out, rtol)
+        print(f"  {label} bundle request (graph): batch {BATCH}, {dt * 1e3:.1f} ms; outputs "
+              f"{'equal' if equal else 'DIFFER'} to the live predictor's on the same generator"
+              f"{f' (rtol {rtol:g})' if rtol else ' (exactly)'}; launches {counts}")
+        if rtol:
+            print(f"    max abs / rel difference to the live request: {spread(out, live_out)}")
+        check_outputs(out, BATCH)
+        assert equal, (label, spread(out, live_out))
+        assert counts == {k: want.get(k, 0) for k in KERNELS}, (label, counts, want)
+        for k, v in counts.items():
+            launches[k] += v
+        if label != "parity":
+            serve_behind_batcher(served.predict, "the loaded serving + K5 bundle")
+        del served
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_behind_batcher(predict, label):
+    """A MicroBatcher(max_batch=8) in front of ``predict``, three callers at
+    once (1, 3 and 4 images): each gets its own rows of fewer device calls
+    than requests."""
+    from ladine_tpu_torch.infer.batching import MicroBatcher
+
     calls = []
 
     def fn(batch):
-        result = loaded.predict(batch)
+        result = predict(batch)
         calls.append((batch, result))
         return result
 
@@ -593,8 +756,8 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
     dt = time.perf_counter() - t0
     batcher.close()
     stats = batcher.stats()
-    print(f"  MicroBatcher(max_batch=8): requests of 1, 3 and 4 images from three threads in "
-          f"{dt * 1e3:.1f} ms; device calls of {[len(b) for b, _ in calls]} images; stats {stats}")
+    print(f"  MicroBatcher(max_batch=8) in front of {label}: requests of 1, 3 and 4 images from three "
+          f"threads in {dt * 1e3:.1f} ms; device calls of {[len(b) for b, _ in calls]} images; stats {stats}")
     for req, res in zip(requests, results):
         assert res is not None, "a caller got no answer"
         check_outputs(res, len(req))
@@ -605,7 +768,6 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
         b, r, off = hits[0]
         assert all(np.array_equal(res[k], r[k][off:off + len(req)]) for k in res)
     assert stats["device_calls"] < len(requests) and stats["requests"] == len(requests), stats
-    return launches
 
 
 def bit_equal(fresh, orig) -> int:
@@ -625,7 +787,7 @@ def check_outputs(out, batch):
 
 
 def stages(pred, images, label):
-    """Host-clock time of the stages of one request, each ended by a
+    """Host-clock time of the stages of one eager request, each ended by a
     synchronize: the guidance heads, the member encoders, and the rest (the
     reverse chain and the aggregation), each through the predictor's own
     path (int8 heads and encoders where it has them)."""
@@ -650,7 +812,7 @@ def stages(pred, images, label):
             enc_ms = timed_ms(lambda: int8_encode(pred.model, x_flat, pred._qenc))
         else:
             enc_ms = timed_ms(lambda: pred.model.encode(x_flat))
-    total_ms = timed_ms(lambda: pred.predict(images))
+    total_ms = timed_ms(lambda: eager_request(pred, images, EAGER_SEED))
     print(f"  stages of one {label} request: guidance heads {heads_ms:.1f} ms, member encoders "
           f"{enc_ms:.1f} ms, reverse chain + aggregation {total_ms - heads_ms - enc_ms:.1f} ms, "
           f"total {total_ms:.1f} ms")
@@ -668,15 +830,15 @@ TRACE_SOURCES = (
 )
 
 
-def trace(pred, images, label, top: int = 8):
-    """Where a request's device time goes: torch.profiler over one request,
-    device time summed by kernel name, and the device's busy share of the
-    request's wall time."""
+def trace(request, label, top: int = 8):
+    """Where a request's device time goes: torch.profiler over one call of
+    ``request``, device time summed by kernel name, and the device's busy
+    share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(images)
+        request()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
@@ -734,9 +896,12 @@ def main() -> int:
     launches, full = run_full_width()
     print("== phase 5: reference state dicts, save and load, the batcher (full width)")
     artifact_launches = run_artifact_surface(**full)
+    print("== phase 6: the AOT bundle: export_serving, ExportedPredictor, the batcher (full width)")
+    bundle_launches = run_bundles(**full)
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
+        e["bundle_launches"] = bundle_launches.get(e["name"], 0)
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} was never launched on the main path")
 

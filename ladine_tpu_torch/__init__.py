@@ -5,26 +5,33 @@ mapping MLPs -> member-stacked CARD diffusion chains -> aggregated
 prediction with uncertainty. The eps layer and the ViT attention run as
 CUDA kernels written for sm_90a (``csrc/``); every entry point runs on the
 card unless it is given ``device="cpu"``.
+
+The names below load on first use, so that importing one submodule (the
+bundle loader ``infer/exported.py``, say) brings in no model code.
 """
 
-from ladine_tpu_torch.infer import Predictor, nested_ensemble_sample
-from ladine_tpu_torch.kernels import flash_attention, fused_eps, fused_linear_act
-from ladine_tpu_torch.metrics import convert_to_prob, majority_vote
-from ladine_tpu_torch.models import ConditionalModel, MappingMLP, SEViTGuidance, ViT
-from ladine_tpu_torch.ops import DiffusionSchedule, make_beta_schedule
+import importlib
 
-__all__ = [
-    "ConditionalModel",
-    "DiffusionSchedule",
-    "MappingMLP",
-    "Predictor",
-    "SEViTGuidance",
-    "ViT",
-    "convert_to_prob",
-    "flash_attention",
-    "fused_eps",
-    "fused_linear_act",
-    "majority_vote",
-    "make_beta_schedule",
-    "nested_ensemble_sample",
-]
+_EXPORTS = {
+    "ConditionalModel": "ladine_tpu_torch.models",
+    "DiffusionSchedule": "ladine_tpu_torch.ops",
+    "ExportedPredictor": "ladine_tpu_torch.infer",
+    "MappingMLP": "ladine_tpu_torch.models",
+    "Predictor": "ladine_tpu_torch.infer",
+    "SEViTGuidance": "ladine_tpu_torch.models",
+    "ViT": "ladine_tpu_torch.models",
+    "convert_to_prob": "ladine_tpu_torch.metrics",
+    "flash_attention": "ladine_tpu_torch.kernels",
+    "fused_eps": "ladine_tpu_torch.kernels",
+    "fused_linear_act": "ladine_tpu_torch.kernels",
+    "majority_vote": "ladine_tpu_torch.metrics",
+    "make_beta_schedule": "ladine_tpu_torch.ops",
+    "nested_ensemble_sample": "ladine_tpu_torch.infer",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

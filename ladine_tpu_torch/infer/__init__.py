@@ -1,5 +1,19 @@
-from ladine_tpu_torch.infer.batching import MicroBatcher
-from ladine_tpu_torch.infer.engine import nested_ensemble_sample
-from ladine_tpu_torch.infer.serve import PRESETS, Predictor
+"""The serving layer. Names load on first use: ``ExportedPredictor`` serves
+a bundle without importing the model code that ``Predictor`` needs."""
 
-__all__ = ["PRESETS", "MicroBatcher", "Predictor", "nested_ensemble_sample"]
+import importlib
+
+_EXPORTS = {
+    "ExportedPredictor": "ladine_tpu_torch.infer.exported",
+    "MicroBatcher": "ladine_tpu_torch.infer.batching",
+    "PRESETS": "ladine_tpu_torch.infer.serve",
+    "Predictor": "ladine_tpu_torch.infer.serve",
+    "nested_ensemble_sample": "ladine_tpu_torch.infer.engine",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -45,6 +45,7 @@ def nested_ensemble_sample(
     pallas_fuse_ends: bool = False,
     qmember=None,
     qenc=None,
+    sampler_table=None,
 ) -> torch.Tensor:
     """All members' MC samples in one chain: (M, mc_trials, B, y_dim).
 
@@ -63,6 +64,9 @@ def nested_ensemble_sample(
         use_int8_encode: int8 enc_lin1 (``kernels.int8.int8_encode``).
         qmember, qenc: the resident int8 weights (``quantize_member``,
             ``quantize_encoder``); quantized in the call when None.
+        sampler_table: the step coefficients (``ops.diffusion``'s
+            ``ancestral_table``, or ``ddim_table`` of ``tau`` and ``eta``);
+            computed in the call when None.
     """
     m, b, c = y0_hat_members.shape
     k = mc_trials
@@ -97,7 +101,7 @@ def nested_ensemble_sample(
             return model.eps(f_rows, y, t, yhat_rows, table)
 
     if tau is None:
-        out = p_sample_loop(eps_fn, y_T_mean, sched, generator, noise)
+        out = p_sample_loop(eps_fn, y_T_mean, sched, generator, noise, sampler_table)
     else:
-        out = ddim_sample_loop(eps_fn, y_T_mean, sched, generator, tau, eta, noise)
+        out = ddim_sample_loop(eps_fn, y_T_mean, sched, generator, tau, eta, noise, sampler_table)
     return out.reshape(m, k, b, c)

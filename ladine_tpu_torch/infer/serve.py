@@ -15,15 +15,24 @@ the encoders' and mapping heads' first layers too (``use_int8_encode``);
 the K4 (K5) kernels. The int8 weights are quantized once, at construction,
 beside the float weights, which stay as they are.
 
+``predict`` checks the images, draws the sampler's noise and runs the
+serving program (``infer/program.py``), a function of tensors only. On the
+card the first call at a batch size captures that program as a CUDA graph,
+and every call replays it (``infer/graphs.py``): the port's counterpart of
+the JAX package's one compiled program per batch shape.
+
 ``save``/``load`` keep a predictor as a directory (``utils/checkpoint.py``):
 the float weights, the schedule and the settings, with the JAX package's
-``ladine_meta.json``. ``export_serving`` is not ported yet (ROADMAP).
+``ladine_meta.json``. ``export_serving`` writes an AOT bundle that
+``ExportedPredictor`` serves without model code (``infer/exported.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
+import time
 import warnings
 from typing import Any, Dict, Optional
 
@@ -31,14 +40,17 @@ import numpy as np
 import torch
 
 from ladine_tpu_torch.device import resolve_device
-from ladine_tpu_torch.infer.engine import nested_ensemble_sample
-from ladine_tpu_torch.kernels.int8 import (
-    int8_mapping_heads,
-    quantize_encoder,
-    quantize_mapping_heads,
-    quantize_member,
+from ladine_tpu_torch.infer.exported import (
+    WEIGHTS,
+    call_seed,
+    program_path,
+    request_images,
+    request_noise,
+    run_request,
 )
-from ladine_tpu_torch.metrics.classification import convert_to_prob, majority_vote
+from ladine_tpu_torch.infer.graphs import GraphCache
+from ladine_tpu_torch.infer.program import ServingProgram, WeightsAsInputs
+from ladine_tpu_torch.kernels.int8 import quantize_encoder, quantize_mapping_heads, quantize_member
 from ladine_tpu_torch.models.conditional import ConditionalModel
 from ladine_tpu_torch.models.guidance import SEViTGuidance
 from ladine_tpu_torch.ops.diffusion import ddim_timesteps
@@ -55,19 +67,42 @@ PRESETS = {
     "fast": dict(ddim_steps=10, ddim_eta=1.0, skip_type="uniform",
                  use_int8=True, use_int8_encode=True),
 }
+# what an exported program may hold of its own (the few constants the
+# program makes); a weight read from outside the run weights would be more
+_MAX_PROGRAM_BYTES = 1 << 20
 
 
-def call_seed(seed: int, counter: int) -> int:
-    """The generator seed of one ``predict`` call: ``seed`` and the call
-    counter mixed into 64 bits (``numpy.random.SeedSequence``), for any
-    non-negative ints. The JAX package folds the counter into
-    ``PRNGKey(seed)``; the draws differ, the property is the same: distinct
-    (seed, counter) pairs give distinct streams."""
-    return int(np.random.SeedSequence([int(seed), int(counter)]).generate_state(1, np.uint64)[0])
+def _head_indices(head_indices, n_stacked: int, n_heads: int) -> tuple:
+    """The guidance heads that condition the stacked members, checked."""
+    idx = tuple(int(i) for i in (head_indices if head_indices is not None else range(n_stacked)))
+    if len(idx) != n_stacked:
+        raise ValueError(f"head_indices {head_indices} must match the {n_stacked} stacked members")
+    if any(not 0 <= i < n_heads for i in idx):
+        raise ValueError(f"head_indices {head_indices} out of range: the guidance has {n_heads} heads "
+                         f"(0..{n_heads - 1})")
+    return idx
+
+
+def _int8_forms(guidance, members, idx, num_members: int, use_int8: bool, use_int8_pallas: bool,
+                use_int8_encode: bool):
+    """The resident int8 forms the settings call for, quantized from
+    ``guidance`` and ``members`` (the modules, or their tensors by name):
+    (member lin2/lin3, enc_lin1, mapping heads' linear1), None where not
+    used. The mapping heads go int8 only when every conditioning head is a
+    mapping head."""
+    qmember = quantize_member(members) if use_int8 or use_int8_pallas else None
+    qenc = quantize_encoder(members) if use_int8_encode else None
+    int8_heads = use_int8_encode and all(i < num_members for i in idx)
+    return qmember, qenc, quantize_mapping_heads(guidance, idx) if int8_heads else None
 
 
 @dataclasses.dataclass
 class Predictor:
+    """A predictor built from modules quantizes its int8 forms from what the
+    modules hold, in their dtype. :meth:`load` quantizes them from the
+    artifact's own tensors before any cast to a narrower compute dtype, as
+    the JAX package quantizes its float32 parameters."""
+
     guidance: SEViTGuidance
     model: ConditionalModel
     sched: DiffusionSchedule
@@ -89,6 +124,9 @@ class Predictor:
     # 0..n_stacked-1
     head_indices: Optional[tuple] = None
     device: Any = "cuda"
+    # the int8 forms load() quantized from the artifact (_int8_forms); None:
+    # quantize the modules here
+    _int8: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -100,30 +138,22 @@ class Predictor:
             if self.ddim_steps
             else None
         )
-        n_stacked = self.model.members
-        idx = tuple(
-            int(i) for i in (
-                self.head_indices if self.head_indices is not None else range(n_stacked)
-            )
+        self._idx = _head_indices(self.head_indices, self.model.members, self.guidance.num_members + 1)
+        # The resident int8 weights, quantized once (member by member, never
+        # in place).
+        forms = self._int8 if self._int8 is not None else _int8_forms(
+            self.guidance, self.model, self._idx, self.guidance.num_members,
+            self.use_int8, self.use_int8_pallas, self.use_int8_encode)
+        self._int8 = None
+        self._qmember, self._qenc, self._qheads = forms
+        self._program = ServingProgram(
+            self.guidance, self.model, self.sched, self._idx, temperature=self.temperature,
+            mc_trials=self.mc_trials, tau=self._tau, eta=self.ddim_eta, noise_prior=self.noise_prior,
+            use_int8_eps=self.use_int8 and not self.use_int8_pallas, use_int8_encode=self.use_int8_encode,
+            use_int8_pallas=self.use_int8_pallas, pallas_fuse_ends=self.pallas_fuse_ends,
+            qmember=self._qmember, qenc=self._qenc, qheads=self._qheads,
         )
-        if len(idx) != n_stacked:
-            raise ValueError(
-                f"head_indices {self.head_indices} must match the {n_stacked} stacked members"
-            )
-        n_heads = self.guidance.num_members + 1
-        if any(not 0 <= i < n_heads for i in idx):
-            raise ValueError(
-                f"head_indices {self.head_indices} out of range: the guidance "
-                f"has {n_heads} heads (0..{n_heads - 1})"
-            )
-        self._idx = idx
-        # The resident int8 weights, quantized once here (member by member,
-        # never in place). The mapping heads' linear1 goes int8 only when
-        # every conditioning head is a mapping head.
-        self._qmember = quantize_member(self.model) if self.use_int8 or self.use_int8_pallas else None
-        self._qenc = quantize_encoder(self.model) if self.use_int8_encode else None
-        int8_heads = self.use_int8_encode and all(i < self.guidance.num_members for i in idx)
-        self._qheads = quantize_mapping_heads(self.guidance, idx) if int8_heads else None
+        self._graphs = GraphCache(self._program, self.device) if self.device.type == "cuda" else None
         # itertools.count is atomic under the GIL: concurrent predict() calls
         # in a threaded server never share a seed
         self._counter = itertools.count()
@@ -145,46 +175,71 @@ class Predictor:
         """images: (B, H, W, 3) float32 in [0, 1]. Returns numpy outputs.
 
         Without a ``generator``, each call seeds a fresh one from ``seed``
-        and a call counter. ``noise`` injects the sampler's draws (see
-        ``infer.engine.nested_ensemble_sample``)."""
-        s = self.guidance.img_size
-        if images.ndim != 4 or tuple(images.shape[1:]) != (s, s, 3):
-            raise ValueError(
-                f"predict expects images of shape (B, {s}, {s}, 3); got {tuple(images.shape)}"
-            )
+        and a call counter; all the sampler's draws are one ``torch.randn``
+        from it. ``noise`` injects those draws instead, (n_draws, M,
+        mc_trials, B, y_dim) (see ``infer.engine.nested_ensemble_sample``).
+        On the card the first call at a batch size captures the serving
+        program as a CUDA graph; every call replays it."""
+        x = request_images(images, self.guidance.img_size)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(call_seed(self.seed, next(self._counter)))
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        if self._qheads is not None:
-            taps = self.guidance.taps_subset(x, self._idx)
-            heads = int8_mapping_heads(self.guidance, taps, self._idx, self._qheads)
-        else:
-            heads = self.guidance.heads_subset(x, self._idx)
-        y0_hat = torch.softmax(heads.float(), dim=-1)
-        x_flat = x.reshape(x.shape[0], -1)  # NHWC, channel-last
-        samples = nested_ensemble_sample(
-            self.model, x_flat, y0_hat, self.sched, mc_trials=self.mc_trials,
-            tau=self._tau, eta=self.ddim_eta, noise_prior=self.noise_prior,
-            generator=generator, noise=noise,
-            use_int8_eps=self.use_int8 and not self.use_int8_pallas,
-            use_int8_encode=self.use_int8_encode, use_int8_pallas=self.use_int8_pallas,
-            pallas_fuse_ends=self.pallas_fuse_ends, qmember=self._qmember, qenc=self._qenc,
-        )
-        m, k, b, c = samples.shape
-        flat = samples.reshape(m * k, b, c)
-        probs = convert_to_prob(flat, self.temperature).mean(dim=0)
-        mv = majority_vote(flat)
-        q = torch.tensor([0.025, 0.975], dtype=flat.dtype, device=flat.device)
-        lo, hi = torch.quantile(flat, q, dim=0)  # linear interpolation, as jnp
-        piw = (hi - lo).gather(1, mv[:, None])[:, 0]
-        var = flat.var(dim=0, correction=1).gather(1, mv[:, None])[:, 0]
-        return {
-            "probs": probs.cpu().numpy(),
-            "majority_vote": mv.cpu().numpy(),
-            "piw": piw.cpu().numpy(),
-            "mc_variance": var.cpu().numpy(),
-        }
+        z = request_noise(self._program.noise_shape(x.shape[0]), self.device, generator, noise)
+        return run_request(self._program, self._graphs, self.device, x, z)
+
+    def export_serving(self, path: str, batch_sizes=(70,)) -> Dict[int, float]:
+        """AOT deployment bundle: the serving program exported with
+        ``torch.export`` (one ``programs/serving_b{B}.pt2`` per batch size),
+        the run weights once (``weights/``: the float weights and the
+        resident int8 forms that replace theirs, as the JAX bundle carries
+        its run trees) and the meta. The run weights are inputs of every
+        program, so the programs carry no copy of them. Reload with
+        ``ExportedPredictor.load``: serving then needs no model code and no
+        tracing, and cannot diverge from the program that was validated.
+
+        Fixed shapes by design; to sit behind a ``MicroBatcher`` pass
+        ``batch_sizes=MicroBatcher.bucket_sizes(cap)``. Locked to the device
+        type it is exported on, as the JAX bundle is platform-locked: export
+        on the card you serve on. Returns the seconds of each export."""
+        s = self.guidance.img_size
+        weights = self._program.run_weights()
+        wrapped = WeightsAsInputs(self._program)
+        os.makedirs(os.path.dirname(program_path(path, 0)), exist_ok=True)
+        seconds = {}
+        with torch.no_grad():
+            for b in batch_sizes:
+                t0 = time.perf_counter()
+                images = torch.zeros((int(b), s, s, 3), device=self.device)
+                noise = torch.zeros(self._program.noise_shape(int(b)), device=self.device)
+                ep = torch.export.export(wrapped, (weights, images, noise), strict=False)
+                held = sum(t.numel() * t.element_size()
+                           for t in (*ep.state_dict.values(), *ep.constants.values())
+                           if isinstance(t, torch.Tensor))
+                if held > _MAX_PROGRAM_BYTES:
+                    raise RuntimeError(f"the exported program holds {held} bytes of tensors: it reads a "
+                                       "weight that the run weights leave out")
+                ep.example_inputs = None  # else saved with the program: a copy of every weight
+                torch.export.save(ep, program_path(path, b))
+                seconds[int(b)] = time.perf_counter() - t0
+        n, m, k, _, c = self._program.noise_shape(1)
+        save_checkpoint(os.path.join(path, WEIGHTS), weights, {
+            "kind": "exported_predictor",
+            "batch_sizes": [int(b) for b in batch_sizes],
+            "img_size": int(s),
+            "seed": int(self.seed),
+            "settings": {
+                "temperature": self.temperature,
+                "mc_trials": self.mc_trials,
+                "ddim_steps": self.ddim_steps,
+                "ddim_eta": self.ddim_eta,
+                "use_int8": self.use_int8,
+                "use_int8_encode": self.use_int8_encode,
+            },
+            "noise_shape": [n, m, k, c],
+            "torch_version": torch.__version__,
+            "device_type": self.device.type,
+        })
+        return seconds
 
     # ------------------------------------------------------------ artifact io
 
@@ -268,7 +323,6 @@ class Predictor:
             num_heads=g["num_heads"], mlp_hidden_dims=tuple(g["mlp_hidden_dims"]),
             device="meta", dtype=g_dtype,
         )
-        _assign(guidance, tree["guidance"])
         m = meta["model"]
         if m.get("arch", "linear") != "linear" or not m.get("guidance", True):
             raise NotImplementedError(f"the port serves arch 'linear' with guidance; {path} has {m}")
@@ -277,7 +331,6 @@ class Predictor:
             feature_dim=m["feature_dim"], hidden_dim=m["hidden_dim"], y_dim=m["y_dim"],
             n_steps=m["n_steps"], device="meta", dtype=m_dtype,
         )
-        _assign(model, tree["members"])
         sched = DiffusionSchedule(**tree["schedule"])
         if ("ddim_eta" not in meta and "ddim_eta" not in overrides
                 and (preset is None or "ddim_eta" not in PRESETS[preset])):
@@ -301,7 +354,15 @@ class Predictor:
         if preset is not None:
             kwargs.update(PRESETS[preset])
         kwargs.update(overrides)
-        return cls(guidance=guidance, model=model, sched=sched, device=dev, **kwargs)
+        # the int8 forms come from the artifact's own tensors, before _assign
+        # casts them to the compute dtype (as the JAX package quantizes its
+        # float32 parameters)
+        idx = _head_indices(kwargs["head_indices"], model.members, guidance.num_members + 1)
+        forms = _int8_forms(tree["guidance"], tree["members"], idx, guidance.num_members,
+                            kwargs["use_int8"], kwargs["use_int8_pallas"], kwargs["use_int8_encode"])
+        _assign(guidance, tree.pop("guidance"))
+        _assign(model, tree.pop("members"))
+        return cls(guidance=guidance, model=model, sched=sched, device=dev, _int8=forms, **kwargs)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

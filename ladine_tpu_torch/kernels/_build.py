@@ -13,6 +13,14 @@ No PyTorch header is compiled, so a build takes seconds.
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
+
+Each wrapper calls a ``torch.library`` custom op of the namespace
+:data:`NAMESPACE` (``torch.ops.ladine_tpu_torch.<op>``): its CPU
+implementation is the kernel's plain version, its CUDA implementation the
+checked launch, and its fake implementation gives the output shapes and
+dtypes, so that ``torch.export`` and CUDA graph capture can carry the
+kernels. Registering an op builds nothing: the library is built at the
+first launch.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # each kernel's registers and spills, in the build log
 )
 
+NAMESPACE = "ladine_tpu_torch"
 launch_counts: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,8 @@ Counterpart of ``ladine_tpu/kernels/attention.py::flash_attention``, on the
 same (B, N, H, D) layout with scale D^-0.5: fp32 scores and softmax, the
 probabilities cast to v's dtype, the output in q's dtype. A CPU tensor goes
 through :func:`flash_attention_plain`; a CUDA tensor goes through the kernel
-(``csrc/attention.cu``), or the wrapper raises.
+(``csrc/attention.cu``), or the wrapper raises. Both are implementations of
+one custom op (``kernels/_build.py``).
 
 The kernel has two bodies, chosen by dtype (:func:`body`): bfloat16 runs
 on the tensor cores (``mma.sync``) and takes D = 16, 32, ..., 128; float32
@@ -82,9 +83,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stride pattern with a unit innermost stride, as the slices of a fused
     qkv projection do; D, the other strides and the data pointers are
     multiples of the kernel's 16-byte vector; in bfloat16 D is a multiple of
-    16 up to 128."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+    16 up to 128. The op ``torch.ops.ladine_tpu_torch.flash_attention``."""
+    return _op(q, k, v)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::{_KERNEL}", mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_attention_plain(q, k, v).contiguous()
+
+
+@_op.register_fake
+def _(q, k, v):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@_op.register_kernel("cuda")
+def _launch(q, k, v):
     b, n, h, d = _check(q, k, v)
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()

@@ -8,7 +8,8 @@ with an optional elementwise gate ``mult`` (the f (.) y conditioning).
 The member axis leads every argument and is a grid dimension of the kernel
 (``csrc/fused_linear.cu``): one launch covers all members. A CPU tensor
 goes through :func:`fused_linear_act_plain`; a CUDA tensor goes through the
-kernel, or the wrapper raises.
+kernel, or the wrapper raises. Both are implementations of one custom op
+(``kernels/_build.py``).
 
 The kernel has three bodies, chosen by shape and dtype (:func:`plan`):
 ``small_k`` for K <= 16 in either dtype (lin1, K = 4: an outer product and
@@ -116,9 +117,24 @@ def fused_linear_act(
     for K <= 16 (lin1, whose gate is the float32 features), is float32.
     Returns (M, R, N) in x.dtype. On the card the kernel body follows from K
     and the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16
-    and simt in float32."""
-    if x.device.type == "cpu":
-        return fused_linear_act_plain(x, w, a, c, mult)
+    and simt in float32. The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
+    return _op(x, w, a, c, mult)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::{_KERNEL}", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
+        mult: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_linear_act_plain(x, w, a, c, mult)
+
+
+@_op.register_fake
+def _(x, w, a, c, mult):
+    lead = torch.broadcast_shapes(x.shape[:-2], w.shape[:-2])
+    return x.new_empty(tuple(lead) + (x.shape[-2], w.shape[-1]))
+
+
+@_op.register_kernel("cuda")
+def _launch(x, w, a, c, mult):
     m, r, k, n = _check(x, w, a, c, mult)
     out = torch.empty((m, r, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:

@@ -20,7 +20,7 @@ the model: the float weights stay as they are.
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,14 +124,21 @@ def int8_matmul(
 Int8Layers = Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
+def _state(src) -> Mapping[str, torch.Tensor]:
+    """A module's tensors by name (its state dict: no copies), or a mapping
+    of the same names as it is, such as an artifact's tree."""
+    return src.state_dict() if isinstance(src, torch.nn.Module) else src
+
+
 @torch.no_grad()
 def quantize_member(model) -> Int8Layers:
-    """int8 lin2 and lin3 of a stacked ``ConditionalModel``:
-    ``{"lin2": (w_q (M, K, N), scale (M, N), colsum (M, N)), "lin3": ...}``,
-    colsum the float32 per-column sum of w_q."""
+    """int8 lin2 and lin3 of a stacked ``ConditionalModel`` (or of its state
+    dict): ``{"lin2": (w_q (M, K, N), scale (M, N), colsum (M, N)), "lin3":
+    ...}``, colsum the float32 per-column sum of w_q."""
+    state = _state(model)
     q = {}
     for name in ("lin2", "lin3"):
-        w_q, scale = quantize_weight(getattr(model, name).linear.weight)
+        w_q, scale = quantize_weight(state[f"{name}.linear.weight"])
         colsum = w_q.sum(dim=-2, dtype=torch.int32).float()
         q[name] = (w_q, scale, colsum)
     return q
@@ -176,9 +183,10 @@ def int8_eps(model, q: Int8Layers, f: torch.Tensor, y: torch.Tensor, t: int,
 
 @torch.no_grad()
 def quantize_encoder(model) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int8 enc_lin1 of a stacked ``ConditionalModel``: (w_q (M, D, H),
-    scale (M, H)). The float weight stays in the model."""
-    return quantize_weight(model.enc_lin1.weight)
+    """int8 enc_lin1 of a stacked ``ConditionalModel`` (or of its state
+    dict): (w_q (M, D, H), scale (M, H)). The float weight stays in the
+    model."""
+    return quantize_weight(_state(model)["enc_lin1.weight"])
 
 
 def _bn_eval_affine(dense_bias, bn):
@@ -208,10 +216,12 @@ def int8_encode(model, x: torch.Tensor, qenc=None) -> torch.Tensor:
 
 @torch.no_grad()
 def quantize_mapping_heads(guidance, mlp_ids: Sequence[int]) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
-    """int8 first layers of the requested mapping heads: ``{i: (w_q (K, N),
-    scale (N,))}``; an ``nn.Linear`` weight is the (N, K) transpose."""
+    """int8 first layers of the requested mapping heads of an
+    ``SEViTGuidance`` (or of its state dict): ``{i: (w_q (K, N), scale
+    (N,))}``; an ``nn.Linear`` weight is the (N, K) transpose."""
+    state = _state(guidance)
     return {
-        i: quantize_weight(guidance.mlps[i].layers[0].weight.transpose(0, 1))
+        i: quantize_weight(state[f"mlps.{i}.layers.0.weight"].transpose(0, 1))
         for i in sorted({int(i) for i in mlp_ids})
     }
 

@@ -12,7 +12,8 @@ members (``csrc/int8_eps_fused.cu``):
   contracted with w4 at once: (M, R, C) float32, without lin4's bias.
 
 A CPU tensor goes through the ``*_plain`` versions; a CUDA tensor goes
-through the kernels, or the wrapper raises.
+through the kernels, or the wrapper raises. Each pair is the CPU and CUDA
+implementation of one custom op (``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from ladine_tpu_torch.kernels import _build
 from ladine_tpu_torch.kernels.int8 import Int8Layers, _folded, div, quantize_rows, softplus
@@ -111,9 +113,47 @@ def _check_lin1(f, y_in, w1, a1, c1):
 def int8_lin1(f, y_in, w1, a1, c1) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`int8_lin1_plain` for every member at once, K5a's lin1 pass
     launched alone (:func:`int8_eps_l12` runs it in the same call as lin2):
-    returns the int8 codes (M, R, K) and max|h1| (M, R, 1) float32."""
-    if f.device.type == "cpu":
-        return int8_lin1_plain(f, y_in, w1, a1, c1)
+    returns the int8 codes (M, R, K) and max|h1| (M, R, 1) float32. The op
+    ``torch.ops.ladine_tpu_torch.int8_lin1``."""
+    return _lin1_op(f, y_in, w1, a1, c1)
+
+
+def int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_eps_l12_plain` for every member at once: f (M, R, K) and
+    y_in (M, R, Ci), w1 (M, Ci, K) in one type (float32/bfloat16), a1/c1
+    (M, K) and s2/c2 (M, N) float32, w_q2 (M, K, N) int8 stored
+    K-contiguous. Returns h2 (M, R, N) in f's type, hmax2 (M, R, 1) float32.
+    The op ``torch.ops.ladine_tpu_torch.int8_eps_l12``."""
+    return _l12_op(f, y_in, w1, a1, c1, w_q2, s2, c2)
+
+
+def int8_eps_l34(h2, hmax2, w_q3, s3, c3, colsum3, w4) -> torch.Tensor:
+    """:func:`int8_eps_l34_plain` for every member at once: h2 (M, R, K)
+    float32/bfloat16, hmax2 (M, R, 1) float32, w_q3 (M, K, N) int8 stored
+    K-contiguous, s3/c3/colsum3 (M, N) float32, w4 (M, N, C) in h2's type.
+    Returns (M, R, C) float32. The op
+    ``torch.ops.ladine_tpu_torch.int8_eps_l34``."""
+    return _l34_op(h2, hmax2, w_q3, s3, c3, colsum3, w4)
+
+
+def _rows(*lead_shapes) -> tuple:
+    return tuple(torch.broadcast_shapes(*lead_shapes))
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::int8_lin1", mutates_args=(), device_types="cpu")
+def _lin1_op(f: Tensor, y_in: Tensor, w1: Tensor, a1: Tensor,
+             c1: Tensor) -> Tuple[Tensor, Tensor]:
+    return int8_lin1_plain(f, y_in, w1, a1, c1)
+
+
+@_lin1_op.register_fake
+def _(f, y_in, w1, a1, c1):
+    shape = _rows(f.shape[:-1], y_in.shape[:-1])
+    return f.new_empty(shape + (f.shape[-1],), dtype=torch.int8), f.new_empty(shape + (1,), dtype=torch.float32)
+
+
+@_lin1_op.register_kernel("cuda")
+def _lin1_launch(f, y_in, w1, a1, c1):
     m, r, k, ci, threads = _check_lin1(f, y_in, w1, a1, c1)
     same_device(L12, f, y_in, w1, a1, c1)
     xq = torch.empty((m, r, k), dtype=torch.int8, device=f.device)
@@ -132,13 +172,20 @@ def int8_lin1(f, y_in, w1, a1, c1) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, xmax
 
 
-def int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`int8_eps_l12_plain` for every member at once: f (M, R, K) and
-    y_in (M, R, Ci), w1 (M, Ci, K) in one type (float32/bfloat16), a1/c1
-    (M, K) and s2/c2 (M, N) float32, w_q2 (M, K, N) int8 stored
-    K-contiguous. Returns h2 (M, R, N) in f's type, hmax2 (M, R, 1) float32."""
-    if f.device.type == "cpu":
-        return int8_eps_l12_plain(f, y_in, w1, a1, c1, w_q2, s2, c2)
+@torch.library.custom_op(f"{_build.NAMESPACE}::int8_eps_l12", mutates_args=(), device_types="cpu")
+def _l12_op(f: Tensor, y_in: Tensor, w1: Tensor, a1: Tensor, c1: Tensor, w_q2: Tensor, s2: Tensor,
+            c2: Tensor) -> Tuple[Tensor, Tensor]:
+    return int8_eps_l12_plain(f, y_in, w1, a1, c1, w_q2, s2, c2)
+
+
+@_l12_op.register_fake
+def _(f, y_in, w1, a1, c1, w_q2, s2, c2):
+    shape = _rows(f.shape[:-2], w_q2.shape[:-2]) + (f.shape[-2],)
+    return f.new_empty(shape + (w_q2.shape[-1],)), f.new_empty(shape + (1,), dtype=torch.float32)
+
+
+@_l12_op.register_kernel("cuda")
+def _l12_launch(f, y_in, w1, a1, c1, w_q2, s2, c2):
     m, r, k, ci, threads = _check_lin1(f, y_in, w1, a1, c1)
     n = check_weight(L12, w_q2, m, k, s2, c2)
     same_device(L12, f, y_in, w1, a1, c1, w_q2, s2, c2)
@@ -162,13 +209,20 @@ def int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2) -> Tuple[torch.Tensor, torch
     return h2, hmax2
 
 
-def int8_eps_l34(h2, hmax2, w_q3, s3, c3, colsum3, w4) -> torch.Tensor:
-    """:func:`int8_eps_l34_plain` for every member at once: h2 (M, R, K)
-    float32/bfloat16, hmax2 (M, R, 1) float32, w_q3 (M, K, N) int8 stored
-    K-contiguous, s3/c3/colsum3 (M, N) float32, w4 (M, N, C) in h2's type.
-    Returns (M, R, C) float32."""
-    if h2.device.type == "cpu":
-        return int8_eps_l34_plain(h2, hmax2, w_q3, s3, c3, colsum3, w4)
+@torch.library.custom_op(f"{_build.NAMESPACE}::int8_eps_l34", mutates_args=(), device_types="cpu")
+def _l34_op(h2: Tensor, hmax2: Tensor, w_q3: Tensor, s3: Tensor, c3: Tensor, colsum3: Tensor,
+            w4: Tensor) -> Tensor:
+    return int8_eps_l34_plain(h2, hmax2, w_q3, s3, c3, colsum3, w4)
+
+
+@_l34_op.register_fake
+def _(h2, hmax2, w_q3, s3, c3, colsum3, w4):
+    shape = _rows(h2.shape[:-2], w_q3.shape[:-2], w4.shape[:-2]) + (h2.shape[-2], w4.shape[-1])
+    return h2.new_empty(shape, dtype=torch.float32)
+
+
+@_l34_op.register_kernel("cuda")
+def _l34_launch(h2, hmax2, w_q3, s3, c3, colsum3, w4):
     m, r, k = check_activations(L34, h2, hmax2)
     n = check_weight(L34, w_q3, m, k, s3, c3, colsum3)
     if w4.dtype != h2.dtype:

@@ -7,7 +7,8 @@ and lin3 (zero-point 127, from lin2's row max) are one kernel launch each
 for all members (``csrc/int8_linear.cu``).
 
 A CPU tensor goes through :func:`int8_linear_softplus_plain`; a CUDA tensor
-goes through the kernel, or the wrapper raises. Which tiles a launch of
+goes through the kernel, or the wrapper raises. Both are implementations of
+one custom op (``kernels/_build.py``). Which tiles a launch of
 the GEMM covers, and which K steps each block of a cluster sums, is
 :func:`gemm_plan`, a pure function of the shape.
 """
@@ -141,9 +142,25 @@ def int8_linear_softplus(
     """:func:`int8_linear_softplus_plain` for every member at once:
     x (M, R, K) float32/bfloat16, xmax (M, R, 1) float32, w_q (M, K, N)
     int8 stored K-contiguous, s/c/colsum (M, N) float32. Returns h (M, R, N)
-    in x.dtype and hmax (M, R, 1) float32."""
-    if x.device.type == "cpu":
-        return int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum)
+    in x.dtype and hmax (M, R, 1) float32. The op
+    ``torch.ops.ladine_tpu_torch.int8_linear_softplus``."""
+    return _op(x, xmax, w_q, s, c, colsum)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::{_KERNEL}", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, xmax: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor, c: torch.Tensor,
+        colsum: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum)
+
+
+@_op.register_fake
+def _(x, xmax, w_q, s, c, colsum):
+    shape = tuple(torch.broadcast_shapes(x.shape[:-2], w_q.shape[:-2])) + (x.shape[-2],)
+    return x.new_empty(shape + (w_q.shape[-1],)), x.new_empty(shape + (1,), dtype=torch.float32)
+
+
+@_op.register_kernel("cuda")
+def _launch(x, xmax, w_q, s, c, colsum):
     m, r, k = check_activations(_KERNEL, x, xmax)
     n = check_weight(_KERNEL, w_q, m, k, s, c, colsum)
     same_device(_KERNEL, x, xmax, w_q, s, c, colsum)

@@ -9,6 +9,12 @@ Noise comes from a ``torch.Generator`` or, when given, from an injected
 draw and entry i the draw of the i-th reverse step. The tests inject the
 exact ``jax.random`` draws of the JAX sampler this way. Without injected
 noise all draws are made in one call before the loop.
+
+The coefficients of every reverse step come from a table computed once on
+the schedule's device (:func:`ancestral_table`, :func:`ddim_table`), which
+a caller may pass in: with a table and injected noise a loop copies
+nothing from the host and never waits on the device, so it can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ EpsFn = Callable[[torch.Tensor, int], torch.Tensor]
 def extract(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
     """Gather schedule entries at timesteps ``t``, shaped to broadcast
     against an ndim-dimensional batch tensor."""
-    t = torch.as_tensor(t, device=arr.device)
+    if not isinstance(t, torch.Tensor):
+        return arr[int(t)].reshape((1,) * ndim)  # an int indexes on the device
     out = arr[t]
     return out.reshape(tuple(t.shape) + (1,) * (ndim - t.dim()))
 
@@ -60,7 +67,8 @@ def p_sample_coefficients(sched: DiffusionSchedule, t) -> PSampleCoeffs:
     tensor of timesteps. ``sqrt(ab_t)`` is recomputed as
     ``sqrt(1 - somab_t^2)``, as the reference does, so float32 rounding
     matches it."""
-    t = torch.as_tensor(t, device=sched.device)
+    if not isinstance(t, (int, torch.Tensor)):
+        t = torch.as_tensor(t, device=sched.device)
     alpha_t = sched.alphas[t]
     somab_t = sched.one_minus_alphas_bar_sqrt[t]
     somab_tm1 = sched.one_minus_alphas_bar_sqrt[t - 1]
@@ -104,22 +112,30 @@ def _draws(n: int, like: torch.Tensor, generator, noise) -> torch.Tensor:
     return noise.to(device=like.device, dtype=like.dtype)
 
 
+def ancestral_table(sched: DiffusionSchedule) -> PSampleCoeffs:
+    """The coefficients of the ancestral steps t = T-1 .. 1, in the loop's
+    order, each (T-1,) on the schedule's device."""
+    T = sched.num_timesteps
+    return p_sample_coefficients(sched, torch.arange(T - 1, 0, -1, device=sched.device))
+
+
 def p_sample_loop(
     eps_fn: EpsFn,
     y_T_mean: torch.Tensor,
     sched: DiffusionSchedule,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    table: Optional[PSampleCoeffs] = None,
 ) -> torch.Tensor:
     """Full ancestral reverse chain: ``y_T = z + y_T_mean``, steps
     t = T-1 .. 1, then the deterministic 1 -> 0 step. ``noise``, if given,
-    has shape ``(T,) + y_T_mean.shape``."""
+    has shape ``(T,) + y_T_mean.shape``; ``table`` is
+    :func:`ancestral_table` (computed here when None)."""
     T = sched.num_timesteps
     z = _draws(T, y_T_mean, generator, noise)
     y = z[0] + y_T_mean
-    ts = list(range(T - 1, 0, -1))
-    coeffs = p_sample_coefficients(sched, torch.tensor(ts, dtype=torch.long))
-    for i, t in enumerate(ts):
+    coeffs = ancestral_table(sched) if table is None else table
+    for i, t in enumerate(range(T - 1, 0, -1)):
         eps = eps_fn(y, t)
         c = PSampleCoeffs(*(v[i] for v in coeffs))
         y = p_sample_step(y, eps, y_T_mean, c, z[i + 1])
@@ -138,6 +154,33 @@ def ddim_timesteps(num_timesteps: int, num_steps: int, skip_type: str = "uniform
     return torch.from_numpy(np.unique(tau.round().astype(np.int64)))
 
 
+class DDIMCoeffs(NamedTuple):
+    """Strided-step coefficients, one entry per step t -> s of the loop."""
+
+    sab_t: torch.Tensor  # sqrt(ab_t)
+    sab_s: torch.Tensor  # sqrt(ab_s)
+    somab_t: torch.Tensor  # sqrt(1 - ab_t)
+    sigma: torch.Tensor
+    dir_coeff: torch.Tensor  # sqrt(1 - ab_s - sigma^2)
+
+
+def ddim_table(sched: DiffusionSchedule, tau: Sequence[int], eta: float) -> DDIMCoeffs:
+    """The coefficients of the strided steps over ``tau`` (see
+    :func:`ddim_sample_loop`), in the loop's order, each (len(tau) - 1,)
+    on the schedule's device."""
+    tau = [int(v) for v in tau]
+    dev = sched.device
+    ab_t = sched.alphas_bar[torch.tensor(tau[1:][::-1], dtype=torch.long, device=dev)]
+    ab_s = sched.alphas_bar[torch.tensor(tau[:-1][::-1], dtype=torch.long, device=dev)]
+    sigma = (
+        eta
+        * torch.sqrt((1.0 - ab_s) / (1.0 - ab_t))
+        * torch.sqrt(torch.clamp_min(1.0 - ab_t / ab_s, 0.0))
+    )
+    dir_coeff = torch.sqrt(torch.clamp_min(1.0 - ab_s - sigma**2, 0.0))
+    return DDIMCoeffs(torch.sqrt(ab_t), torch.sqrt(ab_s), torch.sqrt(1.0 - ab_t), sigma, dir_coeff)
+
+
 def ddim_sample_loop(
     eps_fn: EpsFn,
     y_T_mean: torch.Tensor,
@@ -146,6 +189,7 @@ def ddim_sample_loop(
     tau: Sequence[int],
     eta: float = 0.0,
     noise: Optional[torch.Tensor] = None,
+    table: Optional[DDIMCoeffs] = None,
 ) -> torch.Tensor:
     """Strided (DDIM-style) reverse chain for the mean-shifted CARD process.
 
@@ -154,26 +198,15 @@ def ddim_sample_loop(
               + sqrt(1 - ab_s - sigma^2) eps + sigma z,
         sigma = eta sqrt((1-ab_s)/(1-ab_t)) sqrt(1 - ab_t/ab_s).
     The last step returns the y_0 reparameterization. ``noise``, if given,
-    has shape ``(len(tau),) + y_T_mean.shape``.
+    has shape ``(len(tau),) + y_T_mean.shape``; ``table`` is
+    :func:`ddim_table` of ``tau`` and ``eta`` (computed here when None).
     """
     tau = [int(v) for v in tau]
-    n = len(tau)
-    z = _draws(n, y_T_mean, generator, noise)
+    z = _draws(len(tau), y_T_mean, generator, noise)
     y = z[0] + y_T_mean
-    t_hi = tau[1:][::-1]  # t_{n-1} .. t_1
-    t_lo = tau[:-1][::-1]  # t_{n-2} .. t_0
-    dev = sched.device
-    ab_t = sched.alphas_bar[torch.tensor(t_hi, dtype=torch.long, device=dev)]
-    ab_s = sched.alphas_bar[torch.tensor(t_lo, dtype=torch.long, device=dev)]
-    sab_t, sab_s, somab_t = torch.sqrt(ab_t), torch.sqrt(ab_s), torch.sqrt(1.0 - ab_t)
-    sigma = (
-        eta
-        * torch.sqrt((1.0 - ab_s) / (1.0 - ab_t))
-        * torch.sqrt(torch.clamp_min(1.0 - ab_t / ab_s, 0.0))
-    )
-    dir_coeff = torch.sqrt(torch.clamp_min(1.0 - ab_s - sigma**2, 0.0))
-    for i, t in enumerate(t_hi):
+    c = ddim_table(sched, tau, eta) if table is None else table
+    for i, t in enumerate(tau[1:][::-1]):  # t_{n-1} .. t_1
         eps = eps_fn(y, t)
-        y0 = y0_reparam(y, eps, y_T_mean, sab_t[i], somab_t[i])
-        y = sab_s[i] * y0 + (1.0 - sab_s[i]) * y_T_mean + dir_coeff[i] * eps + sigma[i] * z[i + 1]
+        y0 = y0_reparam(y, eps, y_T_mean, c.sab_t[i], c.somab_t[i])
+        y = c.sab_s[i] * y0 + (1.0 - c.sab_s[i]) * y_T_mean + c.dir_coeff[i] * eps + c.sigma[i] * z[i + 1]
     return p_sample_final(y, eps_fn(y, tau[0]), y_T_mean, sched)

@@ -13,12 +13,16 @@ Counterpart of ``examples/serve_http.py``, with the same wire contract:
 
     python -m ladine_tpu_torch.serve_http --artifact ./artifact --port 8787
     python -m ladine_tpu_torch.serve_http --artifact ./artifact --preset serving
+    python -m ladine_tpu_torch.serve_http --bundle ./bundle --max_batch 70
     python -m ladine_tpu_torch.serve_http --demo --device cpu   # tiny random predictor
 
-``--artifact`` is a ``Predictor.save`` directory. Concurrent requests
-coalesce into one device call of at most ``--max_batch`` images
-(``infer/batching.py``). It serves on the card (``--device cuda``, the
-default) and fails without one unless ``--device cpu`` is given.
+``--artifact`` is a ``Predictor.save`` directory; ``--bundle`` an AOT
+bundle (``Predictor.export_serving``), served as exported: it takes no
+``--preset`` and must carry a program for every batcher bucket up to
+``--max_batch``. Concurrent requests coalesce into one device call of at
+most ``--max_batch`` images (``infer/batching.py``). It serves on the card
+(``--device cuda``, the default) and fails without one unless ``--device
+cpu`` is given.
 (stdlib ``http.server``: the artifact contract, not a production server.)
 """
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from ladine_tpu_torch.infer.batching import MicroBatcher
+from ladine_tpu_torch.infer.exported import ExportedPredictor
 from ladine_tpu_torch.infer.serve import PRESETS, Predictor
 
 DEMO_GEOMETRY = dict(num_classes=2, num_members=3, vit_depth=3, img_size=16, patch_size=8,
@@ -74,7 +79,19 @@ def read_images(body: bytes, content_type: str) -> np.ndarray:
     return np.asarray(json.loads(body)["images"], np.float32)
 
 
-def make_handler(predictor: Predictor, batcher: MicroBatcher):
+def health_info(predictor) -> dict:
+    """What ``GET /health`` reports of a ``Predictor`` or an
+    ``ExportedPredictor`` (its batch sizes and exported settings)."""
+    if isinstance(predictor, ExportedPredictor):
+        return {"kind": "aot_bundle", "image_size": predictor.img_size, "members": predictor.noise_shape[1],
+                "batch_sizes": sorted(predictor.programs), **predictor.settings,
+                "device": str(predictor.device)}
+    return {"image_size": predictor.guidance.img_size, "members": int(predictor.guidance.num_members),
+            "mc_trials": predictor.mc_trials, "ddim_steps": predictor.ddim_steps,
+            "device": str(predictor.device)}
+
+
+def make_handler(info: dict, batcher: MicroBatcher):
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, body: bytes, content_type: str):
             self.send_response(code)
@@ -89,10 +106,7 @@ def make_handler(predictor: Predictor, batcher: MicroBatcher):
         def do_GET(self):
             if self.path != "/health":
                 return self._json(404, {"error": "GET /health or POST /predict"})
-            self._json(200, {"status": "ok", "image_size": predictor.guidance.img_size,
-                             "members": int(predictor.guidance.num_members),
-                             "mc_trials": predictor.mc_trials, "ddim_steps": predictor.ddim_steps,
-                             "device": str(predictor.device), "batching": batcher.stats()})
+            self._json(200, {"status": "ok", **info, "batching": batcher.stats()})
 
         def do_POST(self):
             if self.path != "/predict":
@@ -121,6 +135,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--artifact", type=str, help="a Predictor.save directory")
+    src.add_argument("--bundle", type=str, help="an AOT bundle (Predictor.export_serving), served as exported")
     src.add_argument("--demo", action="store_true", help="a tiny predictor with random weights")
     ap.add_argument("--preset", type=str, default=None, choices=sorted(PRESETS),
                     help="named sampler/quantization operating point; default: the artifact's settings")
@@ -133,13 +148,24 @@ def main(argv=None) -> None:
                     help="how long a lone request waits for co-riders")
     args = ap.parse_args(argv)
 
-    if args.demo:
+    if args.bundle:
+        if args.preset:
+            ap.error("--bundle serves the exported program as it is: re-export it at the preset you "
+                     "want, or serve a live --artifact")
+        predictor = ExportedPredictor.load(args.bundle, device=args.device)
+        missing = [b for b in MicroBatcher.bucket_sizes(args.max_batch) if b not in predictor.programs]
+        if missing:
+            ap.error(f"bundle lacks programs for batcher buckets {missing} at --max_batch {args.max_batch}; "
+                     f"re-export with batch_sizes=MicroBatcher.bucket_sizes({args.max_batch}) or lower "
+                     "--max_batch")
+    elif args.demo:
         predictor = build_demo_predictor(args.device, **(PRESETS[args.preset] if args.preset else {}))
     else:
         predictor = Predictor.load(args.artifact, preset=args.preset, device=args.device)
+    info = health_info(predictor)
     batcher = MicroBatcher(predictor.predict, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
-    server = ThreadingHTTPServer(("127.0.0.1", args.port), make_handler(predictor, batcher))
-    size = predictor.guidance.img_size
+    server = ThreadingHTTPServer(("127.0.0.1", args.port), make_handler(info, batcher))
+    size = info["image_size"]
     print(f"[serve] listening on 127.0.0.1:{args.port} (img {size}x{size}, {predictor.device})",
           file=sys.stderr, flush=True)
     try:

@@ -15,6 +15,14 @@ division, round half to even) and sum them exactly in int32, so K4 differs
 only where softplus rounds apart (1e-5 in fp32); K5's lin1 pass does the
 plain version's float32 arithmetic in the same order, so its codes are equal
 bit for bit, and its lin4 sums with atomics in no fixed order (1e-4).
+
+The serving program on the card: each kernel's ``torch.library`` op passes
+``opcheck`` with its CUDA implementation; a request replayed from the CUDA
+graph of its batch shape equals the same request run eagerly, exactly
+(K5b's lin4 within its fp32 atomics, 1e-6), at every preset and int8 flag;
+concurrent callers of one graph each get their own rows; a bundle exported
+on the card serves exactly as the live predictor; and N replays count N
+times the launches captured.
 """
 
 import numpy as np
@@ -363,7 +371,158 @@ def test_save_load_round_trip_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(after[k], before[k], err_msg=k)
     fused = L.Predictor.load(str(tmp_path / "artifact"), preset="serving", use_int8_pallas=True,
                              pallas_fuse_ends=True, ddim_steps=5, device=cuda)
+    fused.predict(images)  # captures the batch's graph (its eager warm-up launches too)
     launch_counts.clear()
     out = fused.predict(images)
     assert launch_counts["int8_eps_fused_l12"] == launch_counts["int8_eps_fused_l34"] == 5
     assert np.isfinite(out["probs"]).all()
+
+
+# ---------------------------------------------------------------- serving program
+
+
+def _op_cases_on(device):
+    from ladine_tpu_torch.kernels.int8 import quantize_weight
+
+    rng = np.random.default_rng(21)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+    m, r, k, n = 2, 20, 64, 48
+    bf16 = torch.bfloat16
+    w_q, s = quantize_weight(t(m, k, n))
+    colsum = w_q.sum(1, dtype=torch.int32).float()
+    h = t(m, r, k).abs()
+    qkv = t(2, 13, 3, 2, 32, dtype=bf16)
+    return {
+        "fused_linear_act": (t(m, r, k, dtype=bf16), t(m, k, n, dtype=bf16), t(m, n), t(m, n), None),
+        "fused_linear_act-small-k": (t(m, r, 4, dtype=bf16), t(m, 4, n, dtype=bf16), t(m, n), t(m, n),
+                                     t(m, r, n)),
+        "flash_attention": (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
+        "int8_linear_softplus": (h, h.amax(-1, keepdim=True), w_q, s, t(m, n), colsum),
+        "int8_lin1": (t(m, r, k), t(m, r, 4), t(m, 4, k), t(m, k), t(m, k)),
+        "int8_eps_l12": (t(m, r, k), t(m, r, 4), t(m, 4, k), t(m, k), t(m, k), w_q, s, t(m, n)),
+        "int8_eps_l34": (h, h.amax(-1, keepdim=True), w_q, s, t(m, n), colsum, t(m, n, 2)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused_linear_act", "fused_linear_act-small-k", "flash_attention",
+                                  "int8_linear_softplus", "int8_lin1", "int8_eps_l12", "int8_eps_l34"])
+def test_op_passes_opcheck_on_the_card(cuda, case):
+    args = _op_cases_on(cuda)[case]
+    result = torch.library.opcheck(getattr(torch.ops.ladine_tpu_torch, case.split("-")[0]), args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+SMALL = dict(num_classes=2, num_members=2, vit_depth=2, img_size=32, patch_size=8, embed_dim=64,
+             num_heads=2, mlp_hidden_dims=(64, 32, 16))
+PROGRAMS = {
+    "parity-ddim5": dict(ddim_steps=5, use_int8=False),
+    "serving": dict(ddim_steps=5, ddim_eta=1.0, use_int8=True),
+    "fast": dict(ddim_steps=5, ddim_eta=1.0, use_int8=True, use_int8_encode=True),
+    "serving-k4": dict(ddim_steps=5, ddim_eta=1.0, use_int8=True, use_int8_pallas=True),
+    "serving-k5": dict(ddim_steps=5, ddim_eta=1.0, use_int8=True, use_int8_pallas=True, pallas_fuse_ends=True),
+}
+
+
+def _small_predictor(device, **kw):
+    """A small bf16 predictor on the card (BatchNorm and gates float32)."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch.models import init_random_
+
+    gen = torch.Generator().manual_seed(4)
+    modules = []
+    for build in (lambda **a: L.SEViTGuidance(**SMALL, **a),
+                  lambda **a: L.ConditionalModel(2, 32 * 32 * 3, 64, 64, 2, 51, **a)):
+        cpu = init_random_(build(device="cpu"), gen)
+        modules.append(build(device=device, dtype=torch.bfloat16))
+        modules[-1].load_state_dict(cpu.state_dict())
+    return L.Predictor(guidance=modules[0], model=modules[1], mc_trials=4, device=device,
+                       sched=L.DiffusionSchedule.create("linear", 50, device=device), **kw)
+
+
+def _assert_request_equal(got, want, exact=True):
+    for k in want:
+        if exact or k == "majority_vote":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:  # K5b's lin4 sums in fp32 atomics, in no fixed order
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
+
+
+def _eager(pred, images, noise):
+    with torch.inference_mode():
+        outs = pred._program(torch.as_tensor(images, device=pred.device), noise.to(pred.device))
+    return dict(zip(("probs", "majority_vote", "piw", "mc_variance"), (o.cpu().numpy() for o in outs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_graph_replay_equals_the_eager_program(cuda, name, batch):
+    pred = _small_predictor(cuda, **PROGRAMS[name])
+    images = np.random.default_rng(batch).random((batch, 32, 32, 3)).astype(np.float32)
+    noise = torch.randn(pred._program.noise_shape(batch), generator=torch.Generator().manual_seed(5))
+    eager = _eager(pred, images, noise)
+    for _ in range(2):  # the capture's call, then a replay
+        _assert_request_equal(pred.predict(images, noise=noise), eager, exact=name != "serving-k5")
+
+
+@pytest.mark.cuda
+def test_replays_count_the_captured_launches(cuda):
+    pred = _small_predictor(cuda, **PROGRAMS["serving-k5"])
+    images = np.random.default_rng(2).random((3, 32, 32, 3)).astype(np.float32)
+    launch_counts.clear()
+    pred.predict(images)  # the eager warm-up launches; the capture launches nothing
+    warm = dict(launch_counts)
+    captured = pred._graphs.launches(torch.as_tensor(images), torch.zeros(pred._program.noise_shape(3)))
+    assert captured == {"flash_attention": 2, "int8_eps_fused_l12": 5, "int8_eps_fused_l34": 5}
+    assert warm == {k: 2 * v for k, v in captured.items()}  # warm-up + the first replay
+    launch_counts.clear()
+    for _ in range(4):
+        pred.predict(images)
+    assert dict(launch_counts) == {k: 4 * v for k, v in captured.items()}
+
+
+@pytest.mark.cuda
+def test_concurrent_callers_of_one_graph_get_their_own_rows(cuda):
+    import threading
+
+    pred = _small_predictor(cuda, **PROGRAMS["serving-k4"])
+    rng = np.random.default_rng(8)
+    requests = [rng.random((3, 32, 32, 3)).astype(np.float32) for _ in range(6)]
+    noises = [torch.randn(pred._program.noise_shape(3), generator=torch.Generator().manual_seed(i))
+              for i in range(6)]
+    want = [_eager(pred, r, z) for r, z in zip(requests, noises)]
+    got = [None] * 6
+
+    def caller(i):
+        for _ in range(3):
+            got[i] = pred.predict(requests[i], noise=noises[i])
+
+    threads = [threading.Thread(target=caller, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for g, w in zip(got, want):
+        _assert_request_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["parity-ddim5", "serving-k5"])
+def test_bundle_round_trip_on_the_card(cuda, tmp_path, name):
+    from ladine_tpu_torch.infer import ExportedPredictor
+
+    pred = _small_predictor(cuda, **PROGRAMS[name])
+    pred.export_serving(str(tmp_path / "bundle"), batch_sizes=(1, 3))
+    served = ExportedPredictor.load(str(tmp_path / "bundle"), device=cuda)
+    assert served.weights["sched_betas"].is_cuda
+    for b in (1, 3):
+        images = np.random.default_rng(b).random((b, 32, 32, 3)).astype(np.float32)
+        gen = lambda: torch.Generator(device=cuda).manual_seed(3)  # noqa: E731
+        _assert_request_equal(served.predict(images, generator=gen()), pred.predict(images, generator=gen()),
+                              exact=name != "serving-k5")
+    with pytest.raises(ValueError, match="exported on cuda and runs there only"):
+        ExportedPredictor.load(str(tmp_path / "bundle"), device="cpu")

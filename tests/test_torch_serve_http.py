@@ -4,8 +4,12 @@ The contract's tests are those of tests/test_serve_http.py, run here
 against ``python -m ladine_tpu_torch.serve_http --demo --device cpu`` over a
 real socket (the same tiny geometry: 3 members, 16 x 16 images): JSON and
 ``.npy`` in, JSON and ``.npz`` out, uint8/uint16 normalised, 400 on a bad
-payload, 404 on an unknown path. Then the server on a ``Predictor.save``
-artifact with a preset, and without a card when the card is asked for.
+payload, 404 on an unknown path. The contract holds for both sources a
+server takes: ``--demo`` (a live ``Predictor``) and ``--bundle`` (an AOT
+bundle of the same demo predictor, ``Predictor.export_serving`` at the
+batcher's buckets). Then the server on a ``Predictor.save`` artifact with a
+preset, the bundle refusals (``--preset``, a missing bucket), and without a
+card when the card is asked for.
 """
 
 import json
@@ -54,8 +58,22 @@ def _start(*args):
 
 
 @pytest.fixture(scope="module")
-def server():
-    proc, url, _ = _start("--demo", "--device", "cpu", "--max_wait_ms", "1")
+def bundle(tmp_path_factory):
+    """The demo predictor's bundle at MicroBatcher.bucket_sizes(2) = [1, 2]."""
+    from ladine_tpu_torch.serve_http import build_demo_predictor
+
+    path = str(tmp_path_factory.mktemp("bundle") / "demo")
+    build_demo_predictor(device="cpu").export_serving(path, batch_sizes=(1, 2))
+    return path
+
+
+@pytest.fixture(scope="module", params=["demo", "bundle"])
+def server(request):
+    if request.param == "demo":
+        source = ("--demo",)
+    else:
+        source = ("--bundle", request.getfixturevalue("bundle"), "--max_batch", "2")
+    proc, url, _ = _start(*source, "--device", "cpu", "--max_wait_ms", "1")
     try:
         yield url
     finally:
@@ -87,6 +105,17 @@ def test_serves_a_saved_artifact_at_a_preset(tmp_path):
     finally:
         proc.kill()
         proc.wait()
+
+
+@pytest.mark.parametrize("args,message", [
+    (("--preset", "fast"), "serves the exported program as it is"),
+    (("--max_batch", "4"), "bundle lacks programs for batcher buckets [4]"),
+], ids=["preset", "missing-bucket"])
+def test_bundle_refusals(bundle, args, message):
+    out = subprocess.run([sys.executable, "-m", "ladine_tpu_torch.serve_http", "--bundle", bundle, "--device",
+                          "cpu", "--port", str(_free_port()), *args], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 2 and message in out.stderr, out.stderr[-2000:]
 
 
 def test_fails_without_a_card_unless_asked_for_the_cpu():
