@@ -68,6 +68,26 @@ Phases, each fatal on failure (no failure is caught):
    live predictor's on the same generator (exactly; K5: ``K5_RTOL``); then a
    ``MicroBatcher`` in front of the loaded K5 bundle takes requests of 1,
    3 and 4 images from three threads.
+7. Robust evaluation at full width, on the phase-4 modules:
+   ``evaluate_ensemble`` over two batches of seeded images (8, then a
+   ragged tail of 3) with every corruption on (noise 0.05, low resolution
+   2, brightness 0.1, contrast 0.8, cover (0.05, 2), crop 0.1) and PGD on
+   the ViT (eps 0.03, 40 steps, random start), at three operating points:
+   (a) ``ddim_steps=0`` float (K1, K3), (b) DDIM-50 with
+   ``use_int8_pallas`` (K4), (c) with ``pallas_fuse_ends`` too (K5a, K5b).
+   Each runs twice on one pipeline: cold (each batch's first call warms up
+   and captures its CUDA graph) and warm (replays). Per batch it prints the
+   seconds of the corruptions, the attack and the sampling, and the
+   report's seconds; it holds each kernel's launches exact (K3: 12 a
+   forward of every attack step), checks finite samples and the report's
+   keys, and runs ``temperature_search`` on the samples. For (a) a graphed
+   batch's samples equal the eager program's on the same attacked images
+   and draws, exactly. Then each of the 7 attacks once on ``vit_logits`` at
+   batch 2, with its seconds and its exact K3 launches (CW cut to one
+   binary-search round of 100 steps, ``CW_CUT``: at its reference 6 x 1000
+   it took 169 s), and a trace of one attack step at batch 2 and 8. Phase 2 holds K3's backward (the plain VJP) with the
+   kernel's forward against autograd of the plain version at the ViT's
+   shape and times it.
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -232,8 +252,41 @@ def check_kernels():
         name="flash_attention", route="cuda", source="ladine_tpu_torch/csrc/attention.cu",
         replaces="ladine_tpu/kernels/attention.py:54", max_abs_err=k3_err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-        shape=f"q/k/v{(B, N, H, D)} bf16 strided"))
+        shape=f"q/k/v{(B, N, H, D)} bf16 strided", backward=check_attention_backward(g)))
     return entries
+
+
+def check_attention_backward(g):
+    """K3's gradient at the full ViT's shape (B, 197, 12, 64): the kernel's
+    forward, then the plain VJP (``flash_attention_vjp``), against autograd
+    of ``flash_attention_plain`` (2e-2 bf16, 1e-4 fp32); the VJP's time at
+    batch 8 in bf16 beside autograd's of the plain version."""
+    from ladine_tpu_torch import kernels as K
+
+    out = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        qkv = torch.empty(BATCH, 197, 3, 12, 64, device="cuda").uniform_(-2.0, 2.0, generator=g)
+        qkv = qkv.to(dtype).requires_grad_(True)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        d_out = torch.empty(BATCH, 197, 12, 64, device="cuda").uniform_(-1.0, 1.0, generator=g).to(dtype)
+        before = K.launch_counts["flash_attention"]
+        (got,) = torch.autograd.grad(K.flash_attention(q, k, v), qkv, d_out)
+        assert K.launch_counts["flash_attention"] == before + 1, "the grad-requiring forward ran no kernel"
+        (want,) = torch.autograd.grad(K.flash_attention_plain(q, k, v), qkv, d_out)
+        torch.cuda.synchronize()
+        err = compare(f"flash_attention backward {(BATCH, 197, 12, 64)} {str(dtype)[6:]} (kernel forward, "
+                      f"plain VJP) vs autograd of the plain version", got, want, tol)
+        if dtype == torch.bfloat16:
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            ms = cuda_ms(lambda: K.flash_attention_vjp(qd, kd, vd, d_out), 20)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(K.flash_attention_plain(q, k, v), qkv, d_out), 10)
+            print(f"    backward (plain VJP) ms={ms:.4f}; autograd of the plain version (its forward "
+                  f"included) {plain_ms:.4f} ms")
+            out = dict(ms=ms, autograd_plain_ms=plain_ms, max_abs_err=err,
+                       shape=f"q/k/v{(BATCH, 197, 12, 64)} bf16 strided")
+        else:
+            out["fp32_max_abs_err"] = err
+    return out
 
 
 def check_int8_kernels():
@@ -726,6 +779,142 @@ def run_bundles(guidance, model, sched, images, parity_out):
     return launches
 
 
+# Phase 7's operating points: label, EvalConfig flags, and the launches of
+# each chain kernel a batch (K3: 5 for the heads, plus the attack's).
+EVAL_POINTS = (
+    ("(a) ddim_steps=0 float", dict(ddim_steps=0), {"fused_linear_act": 3000}),
+    ("(b) DDIM-50 + use_int8_pallas", dict(ddim_steps=50, ddim_eta=1.0, use_int8_pallas=True),
+     {"int8_linear_softplus": 100}),
+    ("(c) DDIM-50 + use_int8_pallas + pallas_fuse_ends",
+     dict(ddim_steps=50, ddim_eta=1.0, use_int8_pallas=True, pallas_fuse_ends=True),
+     {"int8_eps_fused_l12": 50, "int8_eps_fused_l34": 50}),
+)
+EVAL_CORRUPT = dict(noise_std=0.05, low_resolution=2, brightness=0.1, contrast=0.8, cover=(0.05, 2), crop=0.1)
+EVAL_BATCHES = (BATCH, 3)  # a batch and a ragged tail
+VIT_DEPTH = 12  # K3 launches in one forward of the full ViT
+PGD_FORWARDS = 40 + 1  # a gradient forward a step, then the success forward
+# CW at its reference settings (6 x 1000 Adam steps) takes 169.14 s at
+# batch 2 on an H100 80GB HBM3 at 700 W, above the 90 s this script allows
+# it: it runs cut to one binary-search round of 100 steps
+CW_CUT = dict(binary_search_steps=1, steps=100)
+# each attack's ViT forwards (a gradient forward per step plus its success
+# checks); CW reads success from the forward of its next step, steps + 1 a
+# binary-search round, and one after the eps clip
+ATTACK_FORWARDS = {"FGSM": 2, "PGD": 41, "BIM": 11, "LinfBIM": 11, "L2PGD": 51,
+                   "CW": CW_CUT["binary_search_steps"] * (CW_CUT["steps"] + 1) + 1, "AUTOPGD": 3 + 2 * 99 + 1}
+
+
+def run_evaluation(guidance, model, sched, **_):
+    """Phase 7: ``evaluate_ensemble`` at full width at the three operating
+    points, then each attack once. Returns each kernel's launches over the
+    warm evaluations."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.infer import EvalConfig, compute_report, evaluate_ensemble, make_eval_pipeline
+    from ladine_tpu_torch.infer import temperature_search
+
+    rng = np.random.default_rng(7)
+    batches = [(rng.random((b, 224, 224, 3), dtype="float32"), rng.integers(0, 2, b)) for b in EVAL_BATCHES]
+    n = sum(EVAL_BATCHES)
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, flags, chain in EVAL_POINTS:
+        cfg = EvalConfig(mc_trials=20, attack_name="PGD", attack_eps=0.03, **EVAL_CORRUPT, **flags)
+        t0 = time.perf_counter()
+        pipe = make_eval_pipeline(guidance, model, sched, cfg)
+        torch.cuda.synchronize()
+        print(f"  {label}: pipeline made in {time.perf_counter() - t0:.1f} s")
+        per_batch = {k: len(EVAL_BATCHES) * v for k, v in chain.items()}
+        per_batch["flash_attention"] = len(EVAL_BATCHES) * (PGD_FORWARDS * VIT_DEPTH + 5)
+        for run in ("cold", "warm"):
+            K.launch_counts.clear()
+            seconds = {}
+            t0 = time.perf_counter()
+            report = evaluate_ensemble(guidance, model, sched, batches, cfg, seconds=seconds,
+                                       generator=torch.Generator().manual_seed(11), pipeline=pipe)
+            wall = time.perf_counter() - t0
+            counts = {k: K.launch_counts[k] for k in KERNELS}
+            # a cold batch's sampling is the graph's eager warm-up, its capture, then a replay
+            want = {k: 0 for k in KERNELS}
+            for k, v in per_batch.items():
+                heads_and_chain = v - (len(EVAL_BATCHES) * PGD_FORWARDS * VIT_DEPTH if k == "flash_attention" else 0)
+                want[k] = v + (heads_and_chain if run == "cold" else 0)
+            stages = "; ".join(
+                f"batch {b}: corrupt {s['corrupt']:.3f} s, attack {s['attack']:.3f} s, sample {s['sample']:.3f} s"
+                for b, s in zip(EVAL_BATCHES, seconds["batches"]))
+            print(f"  {label}, {run}: {wall:.2f} s for {n} images ({stages}; report {seconds['report']:.3f} s); "
+                  f"launches {counts}")
+            assert counts == want, (label, run, counts, want)
+            samples = report["samples"]
+            assert samples.shape == (5 * 20, n, 2) and np.isfinite(samples).all(), samples.shape
+            keys = sorted(compute_report(samples, report["labels"], cfg.temperature, num_members=5))
+            assert sorted(report) == keys, (sorted(report), keys)
+            if run == "warm":
+                for k in KERNELS:
+                    launches[k] += counts[k]
+        t0 = time.perf_counter()
+        t_best, e_best = temperature_search(samples, report["labels"])
+        print(f"    report: majority-vote accuracy {report['majority_vote_accuracy']:.2f} %, ECE "
+              f"{report['ece']:.4f}, NLL {report['nll']:.4f}, Brier {report['brier']:.4f}, per member "
+              f"{report['per_member_mv_accuracy']}; temperature_search -> T {t_best:.4f} (ECE {e_best:.4f}) "
+              f"in {time.perf_counter() - t0:.2f} s")
+        if label.startswith("(a)"):
+            images, labels = batches[0]
+            x, noise = pipe.prepare(images, labels, torch.Generator().manual_seed(12))
+            K.launch_counts.clear()
+            eager = pipe.sample(x, noise, eager=True)
+            eager_counts = {k: K.launch_counts[k] for k in KERNELS if K.launch_counts[k]}
+            K.launch_counts.clear()
+            graphed = pipe.sample(x, noise)
+            graph_counts = {k: K.launch_counts[k] for k in KERNELS if K.launch_counts[k]}
+            equal = torch.equal(graphed, eager)
+            print(f"    batch {BATCH}, graphed samples against the eager program's on the same attacked images "
+                  f"and draws: {'equal' if equal else 'DIFFER'} (exactly); launches eager {eager_counts}, "
+                  f"graph {graph_counts}")
+            assert equal, (graphed - eager).abs().max()
+            assert eager_counts == graph_counts == {"fused_linear_act": 3000, "flash_attention": 5}
+        del pipe
+        torch.cuda.empty_cache()
+    run_attacks(guidance)
+    return launches
+
+
+def run_attacks(guidance):
+    """Each of the 7 attacks once on the full ViT at batch 2, eps 0.03 (CW
+    cut, ``CW_CUT``): seconds, success, and exact K3 launches; then a trace
+    of one attack step (the CE gradient through the ViT) at batch 8."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.attacks import ATTACKS, cw_l2, make_attack
+    from ladine_tpu_torch.attacks.gradient import _ce_grad
+
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.random((2, 224, 224, 3), dtype="float32"), device="cuda")
+    with torch.no_grad():
+        labels = torch.argmax(guidance.vit_logits(x), dim=-1)  # the clean predictions
+    for name in ATTACKS:
+        attack = make_attack(name, 0.03, guidance.vit_logits)
+        if name == "CW":
+            attack = lambda x, y, g: cw_l2(guidance.vit_logits, x, y, epsilon=0.03, **CW_CUT)  # noqa: E731
+        torch.cuda.synchronize()
+        K.launch_counts.clear()
+        t0 = time.perf_counter()
+        adv, success = attack(x, labels, torch.Generator(device="cuda").manual_seed(13))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n3 = K.launch_counts["flash_attention"]
+        delta = (adv - x).flatten(1)
+        settings = ("CUT to binary_search_steps=1, steps=100 from the reference 6 x 1000"
+                    if name == "CW" else "the reference settings")
+        print(f"  attack {name} ({settings}): batch 2, {dt:.2f} s; success {success.tolist()}; |delta| Linf {delta.abs().amax().item():.4f}, "
+              f"L2 {delta.norm(dim=1).max().item():.4f}; flash_attention launches {n3}")
+        assert torch.isfinite(adv).all() and adv.shape == x.shape
+        assert n3 == ATTACK_FORWARDS[name] * VIT_DEPTH, (name, n3)
+    for b in (2, BATCH):
+        xb = torch.as_tensor(rng.random((b, 224, 224, 3), dtype="float32"), device="cuda")
+        yb = torch.zeros(b, dtype=torch.int64, device="cuda")
+        _ce_grad(guidance.vit_logits, xb, yb)
+        trace(lambda: (_ce_grad(guidance.vit_logits, xb, yb), torch.cuda.synchronize()),
+              f"attack step (CE gradient through the ViT) at batch {b}", top=10)
+
+
 def serve_behind_batcher(predict, label):
     """A MicroBatcher(max_batch=8) in front of ``predict``, three callers at
     once (1, 3 and 4 images): each gets its own rows of fewer device calls
@@ -879,6 +1068,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     print("== phase 1: environment and build")
     card = gpu_line()
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -890,20 +1080,25 @@ def main() -> int:
 
     print("== phase 2: kernels vs plain versions at the path's shapes and dtypes")
     entries = check_kernels() + check_int8_kernels()
-    print("== phase 3: small fp32 predictor, card vs CPU")
+    print(f"== phase 3: small fp32 predictor, card vs CPU [{time.perf_counter() - start:.0f} s]")
     check_small_against_cpu()
-    print("== phase 4: full-width serving path (parity, serving and fast presets)")
+    print(f"== phase 4: full-width serving path (parity, serving and fast presets) [{time.perf_counter() - start:.0f} s]")
     launches, full = run_full_width()
-    print("== phase 5: reference state dicts, save and load, the batcher (full width)")
+    print(f"== phase 5: reference state dicts, save and load, the batcher (full width) [{time.perf_counter() - start:.0f} s]")
     artifact_launches = run_artifact_surface(**full)
-    print("== phase 6: the AOT bundle: export_serving, ExportedPredictor, the batcher (full width)")
+    print(f"== phase 6: the AOT bundle: export_serving, ExportedPredictor, the batcher (full width) [{time.perf_counter() - start:.0f} s]")
     bundle_launches = run_bundles(**full)
+    print(f"== phase 7: robust evaluation at full width (corruptions, PGD, three operating points; "
+          f"the attacks) [{time.perf_counter() - start:.0f} s]")
+    eval_launches = run_evaluation(**full)
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
         e["bundle_launches"] = bundle_launches.get(e["name"], 0)
-        if e["launches"] == 0:
+        e["eval_launches"] = eval_launches.get(e["name"], 0)
+        if e["launches"] == 0 or e["eval_launches"] == 0:
             raise AssertionError(f"{e['name']} was never launched on the main path")
+    print(f"  all phases in {time.perf_counter() - start:.0f} s")
 
     print(json.dumps({"kernels": entries}))
     print(gpu_line())

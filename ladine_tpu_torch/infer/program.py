@@ -26,7 +26,8 @@ from ladine_tpu_torch.ops.schedules import DiffusionSchedule
 
 
 class ServingProgram(nn.Module):
-    """``forward(images, noise) -> (probs, majority_vote, piw, mc_variance)``.
+    """``forward(images, noise) -> (probs, majority_vote, piw, mc_variance)``,
+    the aggregate of ``samples(images, noise)``.
 
     images: (B, H, W, 3) float32 on the program's device; noise: the
     sampler's draws, (n_draws, M, mc_trials, B, y_dim) float32 (see
@@ -81,7 +82,10 @@ class ServingProgram(nn.Module):
         return {k: v.detach() for k, v in itertools.chain(self.named_parameters(), self.named_buffers())
                 if k not in replaced}
 
-    def forward(self, images: torch.Tensor, noise: torch.Tensor):
+    def samples(self, images: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """The chain's raw samples, (M, mc_trials, B, y_dim): the guidance
+        heads, their softmax, then every member's reverse chain. ``forward``
+        aggregates them; the evaluator (``infer/evaluator.py``) keeps them."""
         g = self.guidance
         if self.heads:
             taps = g.taps_subset(images, self.idx)
@@ -98,13 +102,16 @@ class ServingProgram(nn.Module):
         qmember = {n: tuple(getattr(self, f"q_{n}_{p}") for p in ("w", "scale", "colsum"))
                    for n in self.int8_layers} or None
         qenc = (self.q_enc_w, self.q_enc_scale) if self.use_int8_encode else None
-        samples = nested_ensemble_sample(
+        return nested_ensemble_sample(
             self.model, images.reshape(images.shape[0], -1), y0_hat, sched,
             mc_trials=self.mc_trials, tau=self.tau, eta=self.eta, noise_prior=self.noise_prior,
             noise=noise, use_int8_eps=self.use_int8_eps, use_int8_encode=self.use_int8_encode,
             use_int8_pallas=self.use_int8_pallas, pallas_fuse_ends=self.pallas_fuse_ends,
             qmember=qmember, qenc=qenc, sampler_table=table,
         )
+
+    def forward(self, images: torch.Tensor, noise: torch.Tensor):
+        samples = self.samples(images, noise)
         m, k, b, c = samples.shape
         flat = samples.reshape(m * k, b, c)
         probs = convert_to_prob(flat, self.temperature).mean(dim=0)

@@ -2,7 +2,7 @@
 a plain PyTorch version that serves CPU tensors only."""
 
 from ladine_tpu_torch.kernels._build import launch_counts
-from ladine_tpu_torch.kernels.attention import flash_attention, flash_attention_plain
+from ladine_tpu_torch.kernels.attention import flash_attention, flash_attention_plain, flash_attention_vjp
 from ladine_tpu_torch.kernels.fused_eps import fused_eps
 from ladine_tpu_torch.kernels.fused_linear import fused_linear_act, fused_linear_act_plain
 from ladine_tpu_torch.kernels.int8_eps_fused import (
@@ -23,6 +23,7 @@ from ladine_tpu_torch.kernels.int8_linear import (
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_vjp",
     "fused_eps",
     "fused_linear_act",
     "fused_linear_act_plain",

@@ -10,6 +10,13 @@ one custom op (``kernels/_build.py``).
 The kernel has two bodies, chosen by dtype (:func:`body`): bfloat16 runs
 on the tensor cores (``mma.sync``) and takes D = 16, 32, ..., 128; float32
 runs scalar FMA and takes any D of whole 16-byte vectors.
+
+The op has a gradient (:func:`flash_attention_vjp`), so the white-box
+attacks differentiate the ViT through it: the forward stays the kernel on a
+CUDA tensor whether or not its inputs require grad, and the backward is the
+attention VJP in plain PyTorch, with P recomputed from the saved q and k.
+The JAX package has no backward kernel either: its gradient is XLA's
+autodiff of the einsum attention.
 """
 
 from __future__ import annotations
@@ -26,10 +33,33 @@ _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    d = q.shape[-1]
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * d**-0.5
+    ct = torch.promote_types(q.dtype, torch.float32)  # float32, or float64 for float64 inputs
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) * q.shape[-1] ** -0.5
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype), v).to(q.dtype)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor):
+    """The gradients (dq, dk, dv) of ``sum(d_out * attention(q, k, v))``,
+    each in its input's dtype:
+
+        dV = P^T dO,  dS = P * (dO V^T - rowsum(dO V^T * P)),
+        dQ = dS K D^-0.5,  dK = dS^T Q D^-0.5,
+
+    on P = softmax(q k^T D^-0.5) recomputed from q and k, all in float32
+    (float64 for float64 inputs). Plain matmuls on (B, H, N, D) views, not
+    einsums: the attacks call this 12 times a step, and its host time is
+    the step's."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = (t.transpose(1, 2).to(ct) for t in (q, k, v, d_out))  # (B, H, N, D)
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
+    dv = p.transpose(-1, -2) @ gf
+    dp = gf @ vf.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = ds @ kf * scale
+    dk = ds.transpose(-1, -2) @ qf * scale
+    return dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
 def _lib():
@@ -83,7 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stride pattern with a unit innermost stride, as the slices of a fused
     qkv projection do; D, the other strides and the data pointers are
     multiples of the kernel's 16-byte vector; in bfloat16 D is a multiple of
-    16 up to 128. The op ``torch.ops.ladine_tpu_torch.flash_attention``."""
+    16 up to 128. The op ``torch.ops.ladine_tpu_torch.flash_attention``;
+    its gradient is :func:`flash_attention_vjp`."""
     return _op(q, k, v)
 
 
@@ -117,3 +148,14 @@ def _launch(q, k, v):
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1
     return out
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, d_out):
+    return flash_attention_vjp(*ctx.saved_tensors, d_out)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)

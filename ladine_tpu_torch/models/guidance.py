@@ -1,9 +1,11 @@
 """SEViT guidance: frozen ViT + K mapping MLPs -> K+1 guidance heads.
 
-Counterpart of ``ladine_tpu/models/guidance.py::SEViTGuidance`` for the
-serving path: ``heads_subset`` and ``taps_subset``. Head i (0..K-1) is
-mapping MLP i applied to the bare-patch features after ViT blocks 0..i;
-head K is the full ViT classification forward.
+Counterpart of ``ladine_tpu/models/guidance.py::SEViTGuidance``: every
+head (``forward``), the mapping heads alone (``tap_logits``), the full ViT
+alone (``vit_logits``, the white-box attacks' surface) and the serving
+path's ``heads_subset`` and ``taps_subset``. Head i (0..K-1) is mapping MLP
+i applied to the bare-patch features after ViT blocks 0..i; head K is the
+full ViT classification forward.
 """
 
 from __future__ import annotations
@@ -50,6 +52,25 @@ class SEViTGuidance(nn.Module):
             MappingMLP(in_dim, num_classes, mlp_hidden_dims, device=dev, dtype=dtype)
             for _ in range(num_members)
         )
+
+    def _mlp_heads(self, taps) -> torch.Tensor:
+        """All K mapping heads, (K, B, C)."""
+        return torch.stack([mlp(tap) for mlp, tap in zip(self.mlps, taps)], dim=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> (num_members + 1, B, num_classes) guidance logits."""
+        depths = tuple(range(1, self.num_members + 1))
+        vit_logits, taps = self.vit.forward_with_taps(x, depths)
+        return torch.cat([self._mlp_heads(taps), vit_logits[None]], dim=0)
+
+    def vit_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Full ViT forward only, (B, num_classes): the attack surface of the
+        white-box attacks (the reference attacks the ViT)."""
+        return self.vit(x)
+
+    def tap_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Mapping heads only: (num_members, B, num_classes)."""
+        return self._mlp_heads(self.vit.tap_features(x, tuple(range(1, self.num_members + 1))))
 
     def taps_subset(self, x: torch.Tensor, indices: Sequence[int]) -> torch.Tensor:
         """ViT tap features for the requested MAPPING heads:

@@ -1,3 +1,13 @@
+from ladine_tpu_torch.ops.corruptions import (
+    add_noise,
+    adjust_brightness,
+    adjust_contrast,
+    apply_corruptions,
+    bilinear_resize,
+    down_up_sample,
+    random_cover,
+    random_crop_and_resize,
+)
 from ladine_tpu_torch.ops.diffusion import (
     ddim_sample_loop,
     ddim_timesteps,
@@ -9,6 +19,14 @@ from ladine_tpu_torch.ops.schedules import DiffusionSchedule, make_beta_schedule
 
 __all__ = [
     "DiffusionSchedule",
+    "add_noise",
+    "adjust_brightness",
+    "adjust_contrast",
+    "apply_corruptions",
+    "bilinear_resize",
+    "down_up_sample",
+    "random_cover",
+    "random_crop_and_resize",
     "ddim_sample_loop",
     "ddim_timesteps",
     "make_beta_schedule",

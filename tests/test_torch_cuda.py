@@ -16,6 +16,12 @@ only where softplus rounds apart (1e-5 in fp32); K5's lin1 pass does the
 plain version's float32 arithmetic in the same order, so its codes are equal
 bit for bit, and its lin4 sums with atomics in no fixed order (1e-4).
 
+K3's gradient with the kernel's forward (the forward of a grad-requiring
+call still launches the kernel) equals autograd of the plain version at the
+ViT's shape, 1e-4 in fp32 and 2e-2 in bf16 (the plain version's backward
+runs its einsums in bf16), and the op passes ``opcheck`` with inputs that
+require grad.
+
 The serving program on the card: each kernel's ``torch.library`` op passes
 ``opcheck`` with its CUDA implementation; a request replayed from the CUDA
 graph of its batch shape equals the same request run eagerly, exactly
@@ -526,3 +532,59 @@ def test_bundle_round_trip_on_the_card(cuda, tmp_path, name):
                               exact=name != "serving-k5")
     with pytest.raises(ValueError, match="exported on cuda and runs there only"):
         ExportedPredictor.load(str(tmp_path / "bundle"), device="cpu")
+
+
+# ---------------------------------------------------------------- evaluation
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)], ids=["fp32", "bf16"])
+def test_flash_attention_gradient_with_the_kernel_forward(cuda, dtype, tol):
+    qkv, _ = qkv_views(np.random.default_rng(30), 2, 197, 12, 64)
+    qkv = qkv.to(cuda, dtype).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    d_out = torch.randn(2, 197, 12, 64, generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda).to(dtype)
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    assert launch_counts["flash_attention"] == 1 and out.requires_grad
+    (got,) = torch.autograd.grad(out, qkv, d_out)
+    (want,) = torch.autograd.grad(flash_attention_plain(q, k, v), qkv, d_out)
+    assert launch_counts["flash_attention"] == 1  # the backward launches no forward kernel
+    _close(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_opcheck_with_grad_on_the_card(cuda):
+    qkv, _ = qkv_views(np.random.default_rng(31), 2, 13, 2, 32)
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
+    result = torch.library.opcheck(torch.ops.ladine_tpu_torch.flash_attention,
+                                   (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["parity-ddim5", "serving-k5"])
+def test_graphed_eval_batch_equals_the_eager_one(cuda, name):
+    """A batch of the evaluator (every corruption, PGD on the ViT) through
+    the CUDA graph of its batch shape equals the eager program on the same
+    attacked images and draws; tail batches get graphs of their own."""
+    from ladine_tpu_torch.infer import EvalConfig, make_eval_pipeline
+
+    pred = _small_predictor(cuda)
+    flags = {k: v for k, v in PROGRAMS[name].items() if k != "use_int8"}
+    cfg = EvalConfig(mc_trials=4, temperature=0.2, noise_std=0.05, low_resolution=2, brightness=0.1,
+                     contrast=0.8, cover=(0.05, 2), crop=0.1, attack_name="PGD", **flags)
+    pipe = make_eval_pipeline(pred.guidance, pred.model, pred.sched, cfg, device=cuda)
+    rng = np.random.default_rng(32)
+    for b in (3, 2):
+        images, labels = rng.random((b, 32, 32, 3)).astype(np.float32), rng.integers(0, 2, b)
+        x, noise = pipe.prepare(images, labels, torch.Generator().manual_seed(b))
+        eager = pipe.sample(x, noise, eager=True)
+        for _ in range(2):  # the capture's call, then a replay
+            graphed = pipe.sample(x, noise)
+            if name == "serving-k5":  # K5b's lin4 sums in fp32 atomics, in no fixed order
+                torch.testing.assert_close(graphed, eager, rtol=0, atol=1e-6)
+            else:
+                assert torch.equal(graphed, eager)
+        assert graphed.shape == (2, 4, b, 2) and torch.isfinite(graphed).all()
