@@ -87,7 +87,36 @@ Phases, each fatal on failure (no failure is caught):
    binary-search round of 100 steps, ``CW_CUT``: at its reference 6 x 1000
    it took 169 s), and a trace of one attack step at batch 2 and 8. Phase 2 holds K3's backward (the plain VJP) with the
    kernel's forward against autograd of the plain version at the ViT's
-   shape and times it.
+   shape and times it at batch 8 and 30, beside its bound and
+   ``scaled_dot_product_attention``'s forward and backward.
+
+8. Training at full width (ViT-B/16 at 224, five mapping MLPs, members of
+   data_dim 150528 and feature = hidden = 4096 over 1001 gates; random
+   weights from a seed; nothing cut), on phase 4's bf16 guidance, batch 30,
+   bf16 compute on float32 master parameters. (a) The full train step of
+   one member conditioned on head 4 (the reference's per-member run), fp32
+   Adam and EMA; (b) after freeing phase 4's member modules, all five
+   members with ``lowmem`` (bf16 Adam moments and EMA): for each, 10 timed
+   steps after a warm-up with ms a step, images/s, K3's 5 launches a step
+   held exact, the bytes floor (40 P, lowmem 28 P a member) and its share of
+   3.35 TB/s, peak memory and a trace of one more step (as for (e) and
+   (f)). (c) After each first update: a finite loss,
+   every parameter leaf and running statistic moved, steps 1, and the
+   debiased EMA equal to the reference's read of the parameters, 0.999834
+   of them (``ROADMAP.md`` §3 F4), to fp32: 4 ulps; bf16: one ulp.
+   (d) The hand-off: (b)'s debiased EMA as a bf16 ``ConditionalModel``
+   behind a ``parity`` ``Predictor``, one batch-8 request eager and graphed,
+   equal, K1 3000 and K3 5 launches. (e) The ViT fine-tune (AdamW, fresh
+   2-class head): K3 12 launches and its VJP 12 runs a step. (f) The five
+   mapping MLPs on one tap forward (K3 5 a step), fp32 Adam. (g) Two joint
+   steps at the widths of ``configs/synthetic_tiny.yml`` (K3 at D = 16).
+   (h) ``examples/gmm_posterior.py`` at full strength (1500 steps, 100
+   trials): every row's MAE below 0.1, each row's launches exact. The
+   counts are cleared before the phase and every kernel must launch in it.
+   Then, not counted, each kernel against its plain version at the shapes
+   and dtypes phase 8 gave it: K3 at batch 30 and at (g)'s D = 16 (196 and
+   197 tokens; 16 and 17), K1, K4, K5a and K5b on the GMM rows (4100 rows
+   of width 64, float32).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -96,6 +125,7 @@ last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import shutil
@@ -133,15 +163,17 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, spin: int = 1_000_000) -> float:
     """Device time of one call, averaged over ``iters`` back-to-back calls.
 
     A spin kernel holds the stream while the host enqueues the calls, so the
-    events time the device and not the Python wrapper's launch overhead."""
+    events time the device and not the Python wrapper's launch overhead:
+    ``spin`` cycles a call (1e6: ~0.5 ms) must outlast the host's time to
+    enqueue one."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(iters * 1_000_000)  # ~0.5 ms of cycles per call to enqueue
+    torch.cuda._sleep(iters * spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -259,8 +291,9 @@ def check_kernels():
 def check_attention_backward(g):
     """K3's gradient at the full ViT's shape (B, 197, 12, 64): the kernel's
     forward, then the plain VJP (``flash_attention_vjp``), against autograd
-    of ``flash_attention_plain`` (2e-2 bf16, 1e-4 fp32); the VJP's time at
-    batch 8 in bf16 beside autograd's of the plain version."""
+    of ``flash_attention_plain`` (2e-2 bf16, 1e-4 fp32); the VJP's time in
+    bf16 at batch 8 and at phase 8's batch 30, with its bound and the
+    library yardstick (:func:`vjp_times`)."""
     from ladine_tpu_torch import kernels as K
 
     out = {}
@@ -277,15 +310,45 @@ def check_attention_backward(g):
         err = compare(f"flash_attention backward {(BATCH, 197, 12, 64)} {str(dtype)[6:]} (kernel forward, "
                       f"plain VJP) vs autograd of the plain version", got, want, tol)
         if dtype == torch.bfloat16:
-            qd, kd, vd = (t.detach() for t in (q, k, v))
-            ms = cuda_ms(lambda: K.flash_attention_vjp(qd, kd, vd, d_out), 20)
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(K.flash_attention_plain(q, k, v), qkv, d_out), 10)
-            print(f"    backward (plain VJP) ms={ms:.4f}; autograd of the plain version (its forward "
-                  f"included) {plain_ms:.4f} ms")
-            out = dict(ms=ms, autograd_plain_ms=plain_ms, max_abs_err=err,
-                       shape=f"q/k/v{(BATCH, 197, 12, 64)} bf16 strided")
+            out = dict(max_abs_err=err, **vjp_times(g, BATCH, plain=True))
+            out["batch30"] = vjp_times(g, 30)
         else:
             out["fp32_max_abs_err"] = err
+    return out
+
+
+def vjp_times(g, batch, plain=False):
+    """K3's backward at (batch, 197, 12, 64) bf16 on a fused qkv's slices:
+    the plain VJP's time, its bound (q, k, v, out and dO read, dq, dk and dv
+    written; 5 products of 2 B H N^2 D at the bf16 rate), the library
+    yardstick (``scaled_dot_product_attention`` forward and backward under
+    autograd, never called by the port) and, with ``plain``, autograd of
+    the plain version (its forward included)."""
+    from ladine_tpu_torch import kernels as K
+
+    n, h, d = 197, 12, 64
+    qkv = torch.empty(batch, n, 3, h, d, device="cuda").uniform_(-2.0, 2.0, generator=g).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    d_out = torch.empty(batch, n, h, d, device="cuda").uniform_(-1.0, 1.0, generator=g).to(torch.bfloat16)
+    ms = cuda_ms(lambda: K.flash_attention_vjp(q, k, v, d_out), 20)
+    o = K.flash_attention(q, k, v)
+    grads = K.flash_attention_vjp(q, k, v, d_out)
+    b_ms, b_by = bound((q, k, v, o, d_out, *grads), (10 * batch * h * n * n * d, BF16_FLOP_PER_S))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    dt = d_out.transpose(1, 2)
+    # autograd's host time a call can pass 0.5 ms on a loaded host: a longer spin
+    library_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dt),
+                         20, spin=8_000_000)
+    out = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+               shape=f"q/k/v{(batch, n, h, d)} bf16 strided")
+    line = (f"    backward (plain VJP) at batch {batch}: ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"library_ms(sdpa forward + backward)={library_ms:.4f}")
+    if plain:
+        qg = qkv.detach().requires_grad_(True)
+        out["autograd_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            K.flash_attention_plain(qg[:, :, 0], qg[:, :, 1], qg[:, :, 2]), qg, d_out), 10, spin=8_000_000)
+        line += f"; autograd of the plain version (its forward included) {out['autograd_plain_ms']:.4f} ms"
+    print(line)
     return out
 
 
@@ -563,20 +626,21 @@ def eager_vs_graph(pred, images, label, want, rtol: float = 0.0):
     want = {k: want.get(k, 0) for k in KERNELS}
     eager_request(pred, images, EAGER_SEED)  # warm-up
     torch.cuda.synchronize()
-    K.launch_counts.clear()
+    # deltas, not a cleared count: a caller may be counting a whole phase
+    before = {k: K.launch_counts[k] for k in KERNELS}
     t0 = time.perf_counter()
     eager = eager_request(pred, images, EAGER_SEED)
     eager_ms = (time.perf_counter() - t0) * 1e3
-    eager_counts = {k: K.launch_counts[k] for k in KERNELS}
+    eager_counts = {k: K.launch_counts[k] - before[k] for k in KERNELS}
     t0 = time.perf_counter()
     pred.predict(images, generator=generator(EAGER_SEED))  # warm-up and capture, then a replay
     first_ms = (time.perf_counter() - t0) * 1e3
     capture_s = list(pred._graphs.capture_seconds.values())[-1]
-    K.launch_counts.clear()
+    before = {k: K.launch_counts[k] for k in KERNELS}
     t0 = time.perf_counter()
     graphed = pred.predict(images, generator=generator(EAGER_SEED))
     graph_ms = (time.perf_counter() - t0) * 1e3
-    graph_counts = {k: K.launch_counts[k] for k in KERNELS}
+    graph_counts = {k: K.launch_counts[k] - before[k] for k in KERNELS}
     equal = same_outputs(graphed, eager, rtol)
     print(f"  {label} request, batch {BATCH}: eager {eager_ms:.1f} ms, graph {graph_ms:.1f} ms "
           f"({BATCH / graph_ms * 1e3:.2f} img/s); first call {first_ms:.1f} ms of which warm-up and capture "
@@ -915,6 +979,368 @@ def run_attacks(guidance):
               f"attack step (CE gradient through the ViT) at batch {b}", top=10)
 
 
+# Phase 8: training at the paper's widths (PERF.md §4), nothing cut; the
+# joint step at the widths of configs/synthetic_tiny.yml (full width does
+# not fit beside five members' state, and the reference leaves it off)
+FULL_WIDTHS = dict(img=224, patch=16, embed=768, depth=12, heads=12, mlp=(4096, 2048, 128),
+                   data_dim=224 * 224 * 3, feature=4096, hidden=4096, n_steps=1001)
+TINY_WIDTHS = dict(img=32, patch=8, embed=32, depth=5, heads=2, mlp=(32, 16, 8),
+                   data_dim=32 * 32 * 3, feature=32, hidden=32, n_steps=51)
+TRAIN_BATCH, TRAIN_STEPS = 30, 10  # the reference's batch; timed steps after one warm-up
+PER_MEMBER_HEAD = 4  # (a): the reference's per-member run of mapping head 4 (K3: ViT blocks 0-4)
+# the analytic bytes floor of a member step (bench.py _train_hbm_fields):
+# fwd 4P + bwd 4P + Adam/EMA state read and write 16P each (lowmem 10P each)
+FLOOR_BYTES_PER_PARAM = {False: 40, True: 28}
+GMM_STEPS, GMM_TRIALS = 1500, 100  # the JAX example's full strength
+GMM_ROWS, GMM_WIDTH = 41 * GMM_TRIALS, 64  # the GMM rows: grid points x trials; feature = hidden
+JOINT_BATCH = 16  # (g)'s batch
+# the GMM rows' launches of each kernel: ancestral 100 eps calls, DDIM 5
+# (tau 0, 25, 50, 74, 99), three K1 layers a call; K4 twice a call, K5a and
+# K5b once; the int8 eps with bf16 rows runs torch._int_mm only
+GMM_LAUNCHES = {
+    "ancestral": {"fused_linear_act": 300},
+    "ddim": {"fused_linear_act": 15},
+    "int8_bf16": {},
+    "pallas_int8": {"int8_linear_softplus": 10},
+    "pallas_v2": {"int8_eps_fused_l12": 5, "int8_eps_fused_l34": 5},
+}
+
+
+def free_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gib_now() -> str:
+    return f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"
+
+
+def probes(tensors):
+    """A strided sample of each tensor (about 2^20 elements), copied."""
+    return {k: v.reshape(-1)[:: max(1, v.numel() >> 20)].clone() for k, v in tensors.items()}
+
+
+def timed_steps(run_step, label, k3_per_step, vjp_per_step=None, warm_up=True):
+    """``TRAIN_STEPS`` calls of ``run_step`` (after one warm-up call unless
+    the caller made it), each synchronized: the host-clock ms of each, and
+    K3's forward launches (and its VJP's runs) held exact a step."""
+    from ladine_tpu_torch import kernels as K
+
+    if warm_up:
+        run_step()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        n3, nv = K.launch_counts["flash_attention"], K.vjp_runs["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert K.launch_counts["flash_attention"] - n3 == k3_per_step, (label, K.launch_counts["flash_attention"] - n3)
+        if vjp_per_step is not None:
+            assert K.vjp_runs["flash_attention"] - nv == vjp_per_step, (label, K.vjp_runs["flash_attention"] - nv)
+    ms = float(np.mean(times))
+    print(f"  {label}: {ms:.1f} ms a step (min {min(times):.1f}, max {max(times):.1f}; {TRAIN_STEPS} steps after "
+          f"a warm-up), {TRAIN_BATCH / ms * 1e3:.1f} images/s; K3 launches {k3_per_step} a step"
+          + (f", its VJP {vjp_per_step} a step" if vjp_per_step is not None else ""))
+    return ms, out
+
+
+def check_first_update(state, lowmem, before_params, before_stats, losses):
+    """(c): after the first update the loss is finite, every parameter leaf
+    and running statistic moved, each member's step is 1, and the debiased
+    EMA gives the reference's read of the parameters, (1 - mu)_f32 / (1 -
+    mu_f32) = 0.999834 of them (``train/ema.py``): to float32 rounding (4
+    ulps, 2^-21 relative) for a float32 accumulator, within one bfloat16 ulp
+    (2^-7 relative) for a bfloat16 one."""
+    from ladine_tpu_torch.train import debias_scale
+
+    mu = 0.9999
+    read = float(np.float32(1.0 - mu)) / (1.0 - float(np.float32(mu)))
+
+    assert torch.isfinite(losses).all(), losses
+    assert state.step.tolist() == [1] * state.step.numel(), state.step
+    still = [k for before, now in ((before_params, state.params), (before_stats, state.batch_stats))
+             for k, v in probes(now).items() if torch.equal(v, before[k])]
+    assert not still, f"did not move: {still}"
+    bound = 2.0**-7 * (1 + 2.0**-20) if lowmem else 2.0**-21  # bf16: and the fp32 read's rounding
+    scale = debias_scale(mu, state.step).tolist()
+    worst = 0.0
+    for k, e in state.ema.items():
+        for m in range(e.shape[0]):  # a member at a time: the temporaries stay a leaf's
+            p = state.params[k][m]
+            err = (e[m].float() * scale[m]).sub_(p, alpha=read).abs_()
+            mag = p.abs().mul_(read)
+            assert (err <= bound * mag).all(), (k, m)
+            worst = max(worst, err.div_(mag.clamp_min_(1e-30)).max().item())
+            del err, mag
+    print(f"    first update: losses {[round(v, 4) for v in losses.tolist()]}, all {len(before_params)} parameter "
+          f"leaves and {len(before_stats)} running statistics moved, steps {state.step.tolist()}; debiased EMA "
+          f"against {read:.6f} x the parameters: largest relative error {worst:.2e} (bound {bound:.2e})")
+
+
+def train_members(guidance, sched, members, heads, lowmem, label):
+    """(a) or (b): the full train step (the bf16 guidance's heads, then each
+    member's update in bf16 compute) on a state of ``members`` members, its
+    first update checked (c), then ``TRAIN_STEPS`` timed steps."""
+    from ladine_tpu_torch.models import ConditionalModel
+    from ladine_tpu_torch.train import create_member_states, make_full_train_step, make_optimizer
+
+    W = FULL_WIDTHS
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(80 + members)
+    compute = ConditionalModel(members, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"],
+                               device="meta", dtype=torch.bfloat16)
+    tx = make_optimizer("Adam", 1e-3, lowmem=lowmem)
+    state = create_member_states(compute, gen, tx, members, lowmem=lowmem, device="cuda")
+    p_member = sum(v.numel() for v in state.params.values()) // members
+    step = make_full_train_step(guidance, compute, tx, sched, 5, 2, head_indices=heads)
+    images = torch.rand(TRAIN_BATCH, W["img"], W["img"], 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 2, (TRAIN_BATCH,), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {label}: state of {members} member(s) built in {time.perf_counter() - t0:.1f} s, {p_member / 1e9:.4f} G "
+          f"parameters a member, {gib_now()}")
+    before_p, before_s = probes(state.params), probes(state.batch_stats)
+    state, losses = step(state, images, labels, gen)
+    torch.cuda.synchronize()
+    check_first_update(state, lowmem, before_p, before_s, losses)
+    # the first update was the warm-up
+    ms, (state, losses) = timed_steps(lambda: step(state, images, labels, gen), label, max(heads) + 1,
+                                      warm_up=False)
+    assert torch.isfinite(losses).all(), losses
+    floor = FLOOR_BYTES_PER_PARAM[lowmem] * p_member * members
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
+    print(f"    bytes floor {FLOOR_BYTES_PER_PARAM[lowmem]} x P x {members} = {floor / 1e9:.1f} GB a step, "
+          f"{floor_ms:.2f} ms at 3.35 TB/s: {100 * floor_ms / ms:.1f} % of the step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    trace(lambda: (step(state, images, labels, gen), torch.cuda.synchronize()), f"{label} step", top=10)
+    return state
+
+
+def train_vit(guidance):
+    """(e): the ViT fine-tune with a fresh 2-class head (AdamW lr 1e-4, wd
+    0.1, StepLR(10, 0.5) at 100 steps an epoch, no clipping, the reference's),
+    bf16 compute on float32 masters."""
+    from ladine_tpu_torch.train import create_vit_state, make_optimizer, make_vit_train_step, step_decay
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    tx = make_optimizer("AdamW", step_decay(1e-4, 10, 0.5, 100), weight_decay=0.1, grad_clip=None)
+    state = create_vit_state(guidance.vit, gen, tx, device="cuda")
+    step = make_vit_train_step(guidance.vit, tx)
+    images = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 2, (TRAIN_BATCH,), generator=gen, device="cuda")
+    ms, (state, loss, acc) = timed_steps(lambda: step(state, images, labels), "(e) ViT fine-tune", VIT_DEPTH,
+                                         VIT_DEPTH)
+    assert torch.isfinite(loss) and int(state.step) == TRAIN_STEPS + 1, (loss, state.step)
+    print(f"    loss {float(loss):.4f}, accuracy {float(acc):.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    trace(lambda: (step(state, images, labels), torch.cuda.synchronize()), "(e) ViT fine-tune step", top=8)
+
+
+def train_mapping(guidance):
+    """(f): the five mapping MLPs on one frozen-ViT tap forward (Adam, the
+    reference's StepLR(20, 0.5), float32 state, bf16 compute)."""
+    from ladine_tpu_torch.train import create_mapping_states, make_mapping_train_step, make_optimizer, step_decay
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    tx = make_optimizer("Adam", step_decay(1e-3, 20, 0.5, 100), grad_clip=None)
+    t0 = time.perf_counter()
+    states = create_mapping_states(guidance.mlps[0], gen, tx, 5, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in states.params.values())
+    print(f"  (f) mapping MLPs: 5 states built in {time.perf_counter() - t0:.1f} s, {n / 5e9:.4f} G parameters "
+          f"each, {gib_now()}")
+    step = make_mapping_train_step(guidance.vit, guidance.mlps[0], tx, 5)
+    images = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 2, (TRAIN_BATCH,), generator=gen, device="cuda")
+    ms, (states, losses, accs) = timed_steps(lambda: step(states, images, labels), "(f) mapping MLPs", 5)
+    assert torch.isfinite(losses).all() and states.step.tolist() == [TRAIN_STEPS + 1] * 5, (losses, states.step)
+    print(f"    losses {[round(v, 4) for v in losses.tolist()]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    trace(lambda: (step(states, images, labels), torch.cuda.synchronize()), "(f) mapping step", top=8)
+
+
+def train_joint_tiny():
+    """(g): two joint steps (the guidance's cross-entropy step, then the
+    five members') at the widths of configs/synthetic_tiny.yml, bf16
+    compute: K3 at D = 16. Each step runs the guidance's full forward twice
+    (taps of 5 blocks and the 5-block classifier: 10 K3 launches each), the
+    first under grad (10 VJP runs)."""
+    from ladine_tpu_torch.models import ConditionalModel, SEViTGuidance, init_random_
+    from ladine_tpu_torch.ops import DiffusionSchedule
+    from ladine_tpu_torch.train import create_member_states, make_joint_train_step, make_optimizer
+    from ladine_tpu_torch import kernels as K
+
+    W = TINY_WIDTHS
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    geometry = dict(num_classes=2, num_members=5, vit_depth=W["depth"], img_size=W["img"],
+                    patch_size=W["patch"], embed_dim=W["embed"], num_heads=W["heads"], mlp_hidden_dims=W["mlp"])
+    masters = init_random_(SEViTGuidance(**geometry, device="cuda", dtype=torch.float32), gen)
+    gparams = {k: v.detach() for k, v in masters.named_parameters()}
+    gcompute = SEViTGuidance(**geometry, device="meta", dtype=torch.bfloat16)
+    compute = ConditionalModel(5, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"], device="meta",
+                               dtype=torch.bfloat16)
+    tx, aux = make_optimizer("Adam", 1e-3), make_optimizer("Adam", 1e-4)
+    states = create_member_states(compute, gen, tx, 5, device="cuda")
+    aux_state = aux.init(gparams)
+    step = make_joint_train_step(gcompute, compute, tx, aux, DiffusionSchedule.create("linear", W["n_steps"] - 1,
+                                                                                     device="cuda"), 5, 2)
+    images = torch.rand(JOINT_BATCH, W["img"], W["img"], 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 2, (JOINT_BATCH,), generator=gen, device="cuda")
+    k3 = 2 * (W["depth"] + 5)
+    for i in range(2):
+        n3, nv = K.launch_counts["flash_attention"], K.vjp_runs["flash_attention"]
+        t0 = time.perf_counter()
+        states, gparams, aux_state, aux_loss, losses = step(states, gparams, aux_state, images, labels, gen)
+        torch.cuda.synchronize()
+        d3, dv = K.launch_counts["flash_attention"] - n3, K.vjp_runs["flash_attention"] - nv
+        print(f"  (g) joint step {i} (tiny widths): {(time.perf_counter() - t0) * 1e3:.1f} ms; guidance loss "
+              f"{float(aux_loss):.4f}, member losses {[round(v, 4) for v in losses.tolist()]}; K3 launches {d3}, "
+              f"its VJP {dv}")
+        assert torch.isfinite(aux_loss) and torch.isfinite(losses).all()
+        assert d3 == k3 and dv == W["depth"] + 5, (d3, dv)
+    assert states.step.tolist() == [2] * 5 and int(aux_state["count"]) == 2
+
+
+def gmm_full_strength():
+    """(h): the GMM posterior check at full strength on the card: every
+    row's MAE below 0.1 (the JAX example's bound), each row's launches
+    exact."""
+    from ladine_tpu_torch.examples.gmm_posterior import ROWS, run
+
+    out = run(n_train_steps=GMM_STEPS, mc_trials=GMM_TRIALS, verbose=False, device="cuda")
+    print(f"  (h) GMM posterior: trained {GMM_STEPS} steps in {out['train']['seconds']:.1f} s (loss "
+          f"{out['train']['loss']:.4f})")
+    for name in ROWS:
+        row = out[name]
+        launches = {k: v for k, v in row["launches"].items() if k in KERNELS}
+        print(f"    {name}: MAE {row['mae']:.4f}, {row['seconds']:.2f} s, launches {launches}")
+        assert row["mae"] < 0.1, (name, row["mae"])
+        assert launches == GMM_LAUNCHES[name], (name, launches)
+    return out
+
+
+def check_training_shapes(entries):
+    """After phase 8's counted run (these launches are not counted): each
+    kernel against its plain version at the shapes and dtypes phase 8 gave
+    it, at phase 2's tolerances (float32 K1 at 1e-4, the card tests'):
+    K3's forward at the train steps' batch 30 and at (g)'s D = 16, on the
+    taps' bare patches and the classifier's patches and cls token, bf16 on
+    a fused qkv's slices; K1 on the GMM rows' float32 member (lin1: K = 4
+    gated by the float32 features; lin2/lin3: 64 x 64); K4 (both schemes),
+    K5a and K5b on the int8 GMM rows (float32 rows, since encode's features
+    are float32, and int8 weights of width 64). Each entry's
+    ``max_abs_err`` takes the largest error, and ``phase8`` lists them."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    by_name = {e["name"]: e for e in entries}
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, got, want, tol):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(compare(f"{name} {label}", a, b, tol) for a, b in zip(got, want))
+        by_name[name].setdefault("phase8", {})[label] = err
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    full, tiny = FULL_WIDTHS, TINY_WIDTHS
+    for b, w in ((TRAIN_BATCH, full), (JOINT_BATCH, tiny)):
+        patches = (w["img"] // w["patch"]) ** 2
+        for n in (patches, patches + 1):  # the taps (bare patches), the classifier (and its cls token)
+            shape = (b, n, w["heads"], w["embed"] // w["heads"])
+            qkv = rnd(b, n, 3, *shape[2:], lo=-2.0, hi=2.0, dtype=torch.bfloat16)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            held("flash_attention", f"{shape} bf16", K.flash_attention(q, k, v), K.flash_attention_plain(q, k, v),
+                 2e-2)
+            if b == TRAIN_BATCH:
+                print(f"    ms={cuda_ms(lambda: K.flash_attention(q, k, v), 50):.4f}")
+
+    R, F_ = GMM_ROWS, GMM_WIDTH
+    f, y_in = rnd(1, R, F_), rnd(1, R, 4, lo=0.0, hi=1.0)
+    w1 = rnd(1, 4, F_, lo=-0.5, hi=0.5)
+    a, c = rnd(1, F_, lo=0.5, hi=1.5), rnd(1, F_, lo=-0.5, hi=0.5)
+    h = rnd(1, R, F_, lo=0.0, hi=2.0)
+    w = rnd(1, F_, F_, lo=-F_**-0.5, hi=F_**-0.5)
+    for label, args in ((f"GMM lin1 y_in{tuple(y_in.shape)} fp32, gate fp32", (y_in, w1, a, c, f)),
+                        (f"GMM lin2/lin3 {tuple(h.shape)}x{tuple(w.shape)} fp32", (h, w, a, c, None))):
+        held("fused_linear_act", label, K.fused_linear_act(*args), K.fused_linear_act_plain(*args), 1e-4)
+
+    w_q, w_scale = Q.quantize_weight(w)
+    colsum = w_q.sum(dim=1, dtype=torch.int32).float()
+    s = (w_scale * a).contiguous()
+    for scheme, x, cs in (("symmetric", rnd(1, R, F_, lo=-2.0, hi=2.0), None), ("zero-point", h, colsum)):
+        xmax = (x.amax(-1, keepdim=True) if cs is not None else x.abs().amax(-1, keepdim=True)).contiguous()
+        args = (x, xmax, w_q, s, c, cs)
+        held("int8_linear_softplus", f"GMM {scheme} {tuple(x.shape)} fp32", K.int8_linear_softplus(*args),
+             K.int8_linear_softplus_plain(*args), 1e-3)
+    args = (f, y_in, w1, a, c, w_q, s, c)
+    held("int8_eps_fused_l12", f"GMM f{tuple(f.shape)} fp32", K.int8_eps_l12(*args), K.int8_eps_l12_plain(*args), 1e-3)
+    w4 = rnd(1, F_, 2, lo=-F_**-0.5, hi=F_**-0.5)
+    args = (h, h.amax(-1, keepdim=True).contiguous(), w_q, s, c, colsum, w4)
+    held("int8_eps_fused_l34", f"GMM h2{tuple(h.shape)} fp32, w4{tuple(w4.shape)}", K.int8_eps_l34(*args),
+         K.int8_eps_l34_plain(*args), 1e-3)
+
+
+def run_training(full):
+    """Phase 8: training at full width on phase 4's guidance; returns each
+    kernel's launches over the phase. Sub-phases (a)-(h) as the module
+    docstring lists them; what one no longer needs is freed before the
+    next, and each prints its peak memory."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.train import conditional_model_from_state
+
+    guidance, sched, images = full["guidance"], full["sched"], full["images"]
+    seconds = {}
+    t0 = time.perf_counter()
+    state = train_members(guidance, sched, 1, (PER_MEMBER_HEAD,), False,
+                          f"(a) one member (head {PER_MEMBER_HEAD}), fp32 Adam and EMA")
+    del state
+    seconds["(a)"] = time.perf_counter() - t0
+    full.pop("model")  # phase 4's bf16 member modules
+    free_memory()
+    print(f"  phase 4's member modules freed: {gib_now()}")
+    t0 = time.perf_counter()
+    state = train_members(guidance, sched, 5, tuple(range(5)), True,
+                          "(b) five members, lowmem (bf16 Adam moments and EMA)")
+    seconds["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = conditional_model_from_state(state, use_ema=True, dtype=torch.bfloat16, device="cuda")
+    del state
+    free_memory()
+    pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
+    print(f"  (d) hand-off: (b)'s debiased EMA as a bf16 ConditionalModel in {time.perf_counter() - t0:.1f} s, "
+          f"{gib_now()}")
+    eager_vs_graph(pred, images, "(d) hand-off parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    del pred, model
+    seconds["(c, d)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_vit(guidance)
+    seconds["(e)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_mapping(guidance)
+    seconds["(f)"] = time.perf_counter() - t0
+    free_memory()
+    t0 = time.perf_counter()
+    train_joint_tiny()
+    seconds["(g)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gmm_full_strength()
+    seconds["(h)"] = time.perf_counter() - t0
+    print(f"  phase 8 seconds by sub-phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {k: K.launch_counts[k] for k in KERNELS}
+
+
 def serve_behind_batcher(predict, label):
     """A MicroBatcher(max_batch=8) in front of ``predict``, three callers at
     once (1, 3 and 4 images): each gets its own rows of fewer device calls
@@ -1091,12 +1517,23 @@ def main() -> int:
     print(f"== phase 7: robust evaluation at full width (corruptions, PGD, three operating points; "
           f"the attacks) [{time.perf_counter() - start:.0f} s]")
     eval_launches = run_evaluation(**full)
+    print(f"== phase 8: training at full width (member steps fp32 and lowmem, the EMA, the hand-off, the ViT "
+          f"and mapping trainers, the joint step, the GMM posterior) [{time.perf_counter() - start:.0f} s]")
+    from ladine_tpu_torch import kernels as K
+
+    t8 = time.perf_counter()
+    K.launch_counts.clear()
+    train_launches = run_training(full)
+    print(f"  phase 8 in {time.perf_counter() - t8:.0f} s; launches {train_launches}")
+    print("  phase 8's kernels against their plain versions at its shapes (not counted)")
+    check_training_shapes(entries)
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
         e["bundle_launches"] = bundle_launches.get(e["name"], 0)
         e["eval_launches"] = eval_launches.get(e["name"], 0)
-        if e["launches"] == 0 or e["eval_launches"] == 0:
+        e["train_launches"] = train_launches.get(e["name"], 0)
+        if e["launches"] == 0 or e["eval_launches"] == 0 or e["train_launches"] == 0:
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sources in ``../csrc``), each with
 a plain PyTorch version that serves CPU tensors only."""
 
-from ladine_tpu_torch.kernels._build import launch_counts
+from ladine_tpu_torch.kernels._build import launch_counts, vjp_runs
 from ladine_tpu_torch.kernels.attention import flash_attention, flash_attention_plain, flash_attention_vjp
 from ladine_tpu_torch.kernels.fused_eps import fused_eps
 from ladine_tpu_torch.kernels.fused_linear import fused_linear_act, fused_linear_act_plain
@@ -38,4 +38,5 @@ __all__ = [
     "int8_linear_softplus",
     "int8_linear_softplus_plain",
     "launch_counts",
+    "vjp_runs",
 ]

@@ -45,6 +45,9 @@ NVCC_FLAGS = (
 
 NAMESPACE = "ladine_tpu_torch"
 launch_counts: collections.Counter = collections.Counter()
+# runs of a plain backward registered for a kernel's op (K3's VJP): no
+# kernel launches there, so these are counted apart from the launches
+vjp_runs: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -49,7 +49,8 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out
     on P = softmax(q k^T D^-0.5) recomputed from q and k, all in float32
     (float64 for float64 inputs). Plain matmuls on (B, H, N, D) views, not
     einsums: the attacks call this 12 times a step, and its host time is
-    the step's."""
+    the step's. Each call adds one to ``vjp_runs["flash_attention"]``."""
+    _build.vjp_runs[_KERNEL] += 1
     ct = torch.promote_types(q.dtype, torch.float32)
     qf, kf, vf, gf = (t.transpose(1, 2).to(ct) for t in (q, k, v, d_out))  # (B, H, N, D)
     scale = q.shape[-1] ** -0.5

@@ -1,10 +1,19 @@
 """The epsilon_theta noise-estimator network, members stacked.
 
 Counterpart of ``ladine_tpu/models/conditional.py::ConditionalModel`` for
-the ``linear`` encoder arch, in eval mode. The JAX package stacks the
-members' variable trees and vmaps; here every parameter carries a leading
-member axis M, so the encoder is a batched ``torch.matmul`` and ``eps`` is
-one kernel launch per layer for all members (``kernels/fused_eps.py``).
+the ``linear`` encoder arch. The JAX package stacks the members' variable
+trees and vmaps; here every parameter carries a leading member axis M, so
+the encoder is a batched ``torch.matmul`` and ``eps`` is one kernel launch
+per layer for all members (``kernels/fused_eps.py``).
+
+Train mode (``forward(..., train=True)``) is plain PyTorch, as flax's is
+XLA's: per-row timestep gates, and BatchNorm on the batch's own statistics
+with flax's running update (:meth:`StackedBatchNorm.train_forward`). The
+trainer (``train/diffusion_trainer.py``) keeps float32 master parameters
+and calls a module of the compute dtype through
+``torch.func.functional_call`` with the masters cast to that module's
+tensor dtypes, as a flax ``Dense(dtype=...)`` casts its float32 parameters
+at compute; the module's own layout, and so serving, is unchanged.
 
 Dense weights keep the flax layout ``(M, in, out)``, which is the layout the
 eps kernel reads. BatchNorm parameters, running statistics and the timestep
@@ -26,6 +35,8 @@ from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.kernels.fused_eps import fused_eps
 
 _BN_EPS = 1e-5  # torch BatchNorm1d default
+# flax's momentum weights the OLD running value (torch's momentum 0.1 the new)
+_BN_MOMENTUM = 0.9
 
 
 def _frozen(*shape, device, dtype) -> nn.Parameter:
@@ -70,6 +81,22 @@ class StackedBatchNorm(nn.Module):
         y = (x.float() - self.running_mean.unsqueeze(-2)) * mul.unsqueeze(-2)
         return y + self.bias.unsqueeze(-2)
 
+    def train_forward(self, x: torch.Tensor):
+        """Train mode with flax's semantics: each member's statistics over the
+        batch axis of (M, B, N), in float32, by the fast variance
+        ``E[x^2] - E[x]^2`` clipped at 0 (biased), both to normalize and for
+        the running update ``0.9 * running + 0.1 * batch``. Returns the
+        float32 output and the new (running_mean, running_var), detached."""
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=1, keepdim=True) - mean * mean, 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + _BN_EPS) * self.weight.unsqueeze(-2))
+        y = y + self.bias.unsqueeze(-2)
+        m = _BN_MOMENTUM
+        new_mean = m * self.running_mean + (1 - m) * mean.detach().squeeze(1)
+        new_var = m * self.running_var + (1 - m) * var.detach().squeeze(1)
+        return y, new_mean, new_var
+
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.weight.fill_(1.0)
@@ -89,6 +116,13 @@ class ConditionalLinear(nn.Module):
         super().__init__()
         self.linear = StackedLinear(members, in_features, out_features, device, dtype)
         self.embed = _frozen(members, n_steps, out_features, device=device, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Train mode: ``embed[t] * linear(x)`` with per-row timesteps t of
+        shape (M, B); the gate takes the output's dtype, as in flax."""
+        out = self.linear(x)
+        members = torch.arange(t.shape[0], device=t.device).unsqueeze(1)
+        return self.embed[members, t].to(out.dtype) * out
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -145,3 +179,28 @@ class ConditionalModel(nn.Module):
         eps (M, R, C) in the compute dtype. ``table``: the folded gates of
         every timestep (``kernels.fused_eps.fold_table``), or None."""
         return fused_eps(self, f, y, t, y_hat, table)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, t, y_hat: torch.Tensor, train: bool = False):
+        """epsilon_theta(x, y_t, t, y_hat): flat images (B, data_dim), y_t and
+        y_hat (M, B, C).
+
+        Eval (int t): ``eps(encode(x), ...)``, the kernels' path. Train (t of
+        shape (M, B), one timestep a row): plain PyTorch on the batch's
+        statistics; returns ``(eps, new_batch_stats)``, the running
+        statistics by buffer name, as flax's ``mutable=["batch_stats"]``."""
+        if not train:
+            return self.eps(self.encode(x), y, t, y_hat)
+        stats = {}
+
+        def bn(name, h):
+            out, stats[f"{name}.running_mean"], stats[f"{name}.running_var"] = \
+                getattr(self, name).train_forward(h)
+            return out
+
+        h = F.softplus(bn("enc_bn1", self.enc_lin1(x)))
+        h = F.softplus(bn("enc_bn2", self.enc_lin2(h)))
+        f = bn("norm", self.enc_lin3(h))
+        h = F.softplus(bn("unetnorm1", self.lin1(torch.cat([y, y_hat], dim=-1), t)))
+        h = F.softplus(bn("unetnorm2", self.lin2(f * h, t)))
+        h = F.softplus(bn("unetnorm3", self.lin3(h, t)))
+        return self.lin4(h), stats

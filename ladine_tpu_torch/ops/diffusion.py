@@ -210,3 +210,19 @@ def ddim_sample_loop(
         y0 = y0_reparam(y, eps, y_T_mean, c.sab_t[i], c.somab_t[i])
         y = c.sab_s[i] * y0 + (1.0 - c.sab_s[i]) * y_T_mean + c.dir_coeff[i] * eps + c.sigma[i] * z[i + 1]
     return p_sample_final(y, eps_fn(y, tau[0]), y_T_mean, sched)
+
+
+def antithetic_timesteps(
+    generator: Optional[torch.Generator],
+    n: int,
+    num_timesteps: int,
+    batch_shape: Sequence[int] = (),
+    device=None,
+) -> torch.Tensor:
+    """Antithetic timestep sampling for training: draw n//2+1 uniform t,
+    mirror them as T-1-t, truncate to n. ``batch_shape`` leads with
+    independent draws (a member axis, say): int64 of shape
+    ``(*batch_shape, n)``."""
+    t_half = torch.randint(0, num_timesteps, (*batch_shape, n // 2 + 1),
+                           generator=generator, device=device)
+    return torch.cat([t_half, num_timesteps - 1 - t_half], dim=-1)[..., :n]

@@ -4,7 +4,9 @@
   optax, orbax or the JAX package. The check reads the source (AST), not
   ``sys.modules``: jax may already be imported by the interpreter's startup.
 * Entry points run on the card by default and raise without CUDA, unless the
-  caller passes ``device="cpu"``.
+  caller passes ``device="cpu"``: the models, the schedule, the predictor,
+  the trainers' state makers, the hand-off from training to serving and
+  the GMM posterior check.
 """
 
 import ast
@@ -13,9 +15,17 @@ import pathlib
 import pytest
 import torch
 
+from ladine_tpu_torch.examples.gmm_posterior import run as gmm_run
 from ladine_tpu_torch.infer import Predictor
 from ladine_tpu_torch.models import ConditionalModel, MappingMLP, SEViTGuidance, ViT
 from ladine_tpu_torch.ops import DiffusionSchedule
+from ladine_tpu_torch.train import (
+    conditional_model_from_state,
+    create_mapping_states,
+    create_member_states,
+    create_vit_state,
+    make_optimizer,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ladine_tpu"}
@@ -25,6 +35,14 @@ def _sources():
     files = sorted((ROOT / "ladine_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     return files
+
+
+@pytest.mark.parametrize("package", ["train", "data", "examples", "models", "kernels", "infer", "utils"])
+def test_guard_reads_every_subpackage(package):
+    """The training, data and example subpackages are read like the rest."""
+    read = {p.relative_to(ROOT / "ladine_tpu_torch").parts[0] for p in _sources()[:-1]}
+    assert package in read
+    assert all(p in _sources() for p in (ROOT / "ladine_tpu_torch" / package).glob("*.py"))
 
 
 def _top_level_imports(path):
@@ -55,6 +73,17 @@ ENTRY_POINTS = {
     "guidance": lambda **kw: SEViTGuidance(num_members=1, vit_depth=1, img_size=16, patch_size=8,
                                            embed_dim=16, num_heads=2, mlp_hidden_dims=(4,), **kw),
     "members": lambda **kw: ConditionalModel(2, 12, 4, 4, 2, 11, **kw),
+    "member_states": lambda **kw: create_member_states(
+        ConditionalModel(2, 12, 4, 4, 2, 11, device="meta"), torch.Generator(), make_optimizer(), 2, **kw),
+    "vit_state": lambda **kw: create_vit_state(
+        ViT(img_size=16, patch_size=8, embed_dim=16, depth=1, num_heads=2, device="meta"), torch.Generator(),
+        make_optimizer(), **kw),
+    "mapping_states": lambda **kw: create_mapping_states(
+        MappingMLP(in_dim=8, hidden_dims=(4,), device="meta"), torch.Generator(), make_optimizer(), 2, **kw),
+    "hand_off": lambda **kw: conditional_model_from_state(
+        create_member_states(ConditionalModel(2, 12, 4, 4, 2, 11, device="meta"), torch.Generator(),
+                             make_optimizer(), 2, device="cpu"), **kw),
+    "gmm_posterior": lambda **kw: gmm_run(n_train_steps=1, mc_trials=1, verbose=False, **kw),
 }
 
 

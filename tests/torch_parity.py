@@ -5,6 +5,8 @@ their noise from ``jax.random``; the helpers here rebuild those exact draws
 so that they can be injected into the port's samplers.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +119,80 @@ def jax_eval_draws(key, cfg, shape, members: int, n_draws: int):
     noise = rebuild(k_sample, members, cfg.mc_trials, (b, 2), n_draws)
     return {"corrupt": jax_corruption_draws(k_corrupt, shape, cfg.cover, cfg.crop),
             "noise": j2t(noise)}, k_attack
+
+
+def jax_member_draws(key, n: int, num_timesteps: int, y_dim: int):
+    """The draws of one JAX ``make_member_step`` call: ``k_t, k_e =
+    split(key)``, ``antithetic_timesteps(k_t, ...)``, then ``normal(k_e,
+    (n, y_dim))``. Returns (t (n,), noise (n, y_dim)) as tensors."""
+    from ladine_tpu.ops.diffusion import antithetic_timesteps
+
+    k_t, k_e = jax.random.split(key)
+    t = np.asarray(antithetic_timesteps(k_t, n, num_timesteps))
+    e = np.asarray(jax.random.normal(k_e, (n, y_dim), jnp.float32))
+    return torch.from_numpy(t.astype(np.int64)), j2t(e)
+
+
+def jax_multi_draws(key, members: int, n: int, num_timesteps: int, y_dim: int):
+    """The draws of one JAX ``make_multi_member_step`` call (also inside
+    the full and joint steps): ``split(key, M)``, then each member as
+    :func:`jax_member_draws`. Returns (t (M, n), noise (M, n, y_dim))."""
+    draws = [jax_member_draws(k, n, num_timesteps, y_dim) for k in jax.random.split(key, members)]
+    return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+
+
+GRAD_RTOL = 1e-4  # the step's gradient, read off Adam's first moments, against JAX's
+EXCUSED_MAX = 1e-3  # share of a leaf that may step apart at the gradient's noise floor
+
+
+def key_bias_slices(params) -> dict:
+    """The key thirds of every attention's fused qkv bias: softmax does not
+    see a constant added to every key's score, so their exact gradient is
+    zero (for :func:`assert_adam_step`'s ``zero_grad``)."""
+    return {k: slice(v.shape[-1] // 3, 2 * v.shape[-1] // 3) for k, v in params.items()
+            if k.endswith("attn.qkv.bias")}
+
+
+def assert_adam_step(params, mu, mu_old, ref_mu, ref_params, lr, lead=0, zero_grad=None):
+    """New parameters and first moments against JAX's after one Adam step
+    (b1 = 0.9) from the same state, each leaf in ``lead`` leading stacked
+    axes a member at a time:
+
+    - the step's gradient, read off the first moments (g = (mu - 0.9
+      mu_old) / 0.1), within GRAD_RTOL of JAX's in norm;
+    - the new parameters to abs 1e-5, except where JAX's gradient is below
+      1e-6: at that noise floor Adam's step g/(|g| + eps) turns a rounding
+      difference of g into a step difference, so those elements are held
+      to Adam's largest step twice over (2 x 3.2 lr), and at most
+      EXCUSED_MAX of a leaf (at least one element) may use that room.
+
+    ``zero_grad`` maps a leaf's name to the index of its elements whose
+    exact gradient is zero (``...`` for all): JAX's gradient there must be
+    at the noise floor, and they are left out of the gradient check and of
+    the excused share. Prints each leaf's excused elements; returns the
+    masks of the elements at the noise floor."""
+    zero_grad = zero_grad or {}
+    noisy, excused = {}, {}
+    for k, v in ref_params.items():
+        g_ref = (ref_mu[k] - 0.9 * mu_old[k]) / 0.1
+        g_port = (mu[k] - 0.9 * mu_old[k]) / 0.1
+        noisy[k] = g_ref.abs() < 1e-6
+        diff = (params[k] - v).abs()
+        assert diff.max() <= 2 * 3.2 * lr, (k, diff.max())
+        zero = torch.zeros_like(noisy[k])
+        if k in zero_grad:
+            zero[(slice(None),) * lead + (zero_grad[k],)] = True
+            assert noisy[k][zero].all(), (k, g_ref[zero].abs().max())
+        used = noisy[k] & (diff > 1e-5) & ~zero
+        excused[k] = int(used.sum())
+        assert excused[k] <= max(1, EXCUSED_MAX * int((~zero).sum())), (k, excused[k], g_ref[used], diff[used])
+        n = math.prod(g_ref.shape[:lead])
+        g_ref, g_port = g_ref.masked_fill(zero, 0.0), g_port.masked_fill(zero, 0.0)
+        gaps, norms = (g_port - g_ref).reshape(n, -1).norm(dim=-1), g_ref.reshape(n, -1).norm(dim=-1)
+        assert (gaps <= GRAD_RTOL * norms).all(), (k, gaps, norms)
+    print("elements stepped apart at the gradient's noise floor, outside the exact zeros: "
+          + (", ".join(f"{k} {n} of {ref_params[k].numel()}" for k, n in excused.items() if n) or "none"))
+    return noisy
 
 
 @pytest.fixture(scope="module", autouse=True)
