@@ -117,6 +117,25 @@ Phases, each fatal on failure (no failure is caught):
    and dtypes phase 8 gave it: K3 at batch 30 and at (g)'s D = 16 (196 and
    197 tokens; 16 and 17), K1, K4, K5a and K5b on the GMM rows (4100 rows
    of width 64, float32).
+9. The command-line pipeline at ``configs/synthetic224.yml``'s widths
+   (those of phase 8), in process through each CLI's ``main(argv)``, on a
+   two-class ``pathmnist.npz`` made from a seed (90 / 30 / 16 images of
+   28x28 RGB, class 1 brighter, resized to 224), with the config built in
+   code and written by the port's own YAML writer, all in ``_smoke_cli/``
+   beside this script (~37 GiB at its largest, deleted at the end):
+   ``train_transformer`` (1 epoch, fp32 ViT), ``train_mapping`` (1 epoch,
+   five MLPs), ``assemble``, ``main --train`` (five members,
+   ``optim.lowmem``, ``--light_ckpt``, ``--val_ddim 25``), ``main --test``
+   from its checkpoint (DDIM-50, 20 trials, batch 8, ``--save_samples``),
+   ``main --test --suite`` (noise, PGD, ``parity``, ``use_int8_pallas``, +
+   ``pallas_fuse_ends``) and ``main --calib --cached_samples --tune_T``.
+   Each run prints its seconds, images/s of training, peak GiB, bytes
+   written and launches, held exact. Bars: finite losses, the best
+   checkpoint named as the JAX runner names it, probs rows summing to 1,
+   the calibration from the dump equal to ``temperature_search`` and
+   ``tune_temperature_nll`` on the test's samples. Then, not counted, K3 in
+   float32 at batch 30 and K1 at the validation's 30 rows a member against
+   their plain versions (``check_cli_shapes``).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -1341,6 +1360,264 @@ def run_training(full):
     return {k: K.launch_counts[k] for k in KERNELS}
 
 
+# Phase 9: the command-line pipeline at configs/synthetic224.yml's widths,
+# in process through each CLI's main(argv), on a two-class corpus made from
+# a seed (28x28 RGB, class-dependent brightness, read as PathMNIST and
+# resized to 224 on the way in)
+CLI_DIR = "_smoke_cli"  # beside this script (gitignored), deleted at the end
+CLI_CORPUS = {"train": 90, "val": 30, "test": 16}
+CLI_SEED = 9
+CLI_TEST_BATCH = 8
+CLI_DDIM, CLI_VAL_DDIM = 50, 25
+# the suite's rows: EvalConfig overrides on top of --ddim 50, and each
+# chain kernel's launches a batch (K3: 5 for the heads, plus the attack's)
+CLI_SUITE = {
+    "noise": ({"noise_std": 0.05}, {"fused_linear_act": 3 * CLI_DDIM}),
+    "pgd": ({"attack_name": "PGD", "attack_eps": 0.03}, {"fused_linear_act": 3 * CLI_DDIM}),
+    "parity": ({"ddim_steps": 0}, {"fused_linear_act": 3000}),
+    "int8_pallas": ({"use_int8_pallas": True}, {"int8_linear_softplus": 2 * CLI_DDIM}),
+    "int8_fused": ({"use_int8_pallas": True, "pallas_fuse_ends": True},
+                   {"int8_eps_fused_l12": CLI_DDIM, "int8_eps_fused_l34": CLI_DDIM}),
+}
+
+
+def cli_config(root: str, dataroot: str) -> str:
+    """configs/synthetic224.yml's widths (ViT-B/16 at 224, mapping MLPs
+    150528 -> 4096 -> 2048 -> 128 -> 2, five linear members of feature =
+    hidden = 4096, T = 1000, bf16), built in code and written with the
+    port's own YAML writer; one epoch at batch 30."""
+    from ladine_tpu_torch.config import Config
+
+    cfg = Config()
+    w = FULL_WIDTHS
+    cfg.data.dataset, cfg.data.dataroot, cfg.data.num_classes = "PathMNIST", dataroot, 2
+    m = cfg.model
+    m.image_size, m.patch_size, m.embed_dim, m.vit_depth, m.num_heads = (w["img"], w["patch"], w["embed"],
+                                                                         w["depth"], w["heads"])
+    m.mlp_hidden_dims, m.feature_dim, m.hidden_dim, m.data_dim = w["mlp"], w["feature"], w["hidden"], w["data_dim"]
+    m.dtype, m.ema_rate = "bfloat16", 0.997
+    cfg.diffusion.timesteps, cfg.diffusion.num_members = w["n_steps"] - 1, 5
+    t = cfg.training
+    t.batch_size, t.n_epochs, t.warmup_epochs, t.validation_freq, t.logging_freq = TRAIN_BATCH, 1, 1, 1, 10
+    cfg.sampling.batch_size = TRAIN_BATCH
+    cfg.testing.batch_size, cfg.testing.mc_trials, cfg.testing.drop_last = 70, 20, False
+    path = os.path.join(root, "synthetic224_cli.yml")
+    cfg.save_yaml(path)
+    back = Config.from_yaml(path).to_dict()
+    assert back == cfg.to_dict(), "the YAML writer and reader disagree"
+    return path
+
+
+def cli_corpus(root: str) -> None:
+    """pathmnist.npz: 90 train, 30 valid, 16 test images, 28x28 RGB uint8,
+    class 1 brighter than class 0 (the runner's demo images), labels (N, 1)."""
+    rng = np.random.default_rng(CLI_SEED)
+    arrays = {}
+    for split, n in CLI_CORPUS.items():
+        labels = rng.integers(0, 2, n)
+        images = (rng.random((n, 28, 28, 3)) * 0.2 + labels[:, None, None, None] * 0.6) * 255
+        arrays[f"{split}_images"] = images.astype(np.uint8)
+        arrays[f"{split}_labels"] = labels.reshape(-1, 1)
+    np.savez(os.path.join(root, "pathmnist.npz"), **arrays)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def run_cli(label, main, argv, want, root, train_images=True):
+    """One CLI run, in process: its seconds, its JSON result (the last line
+    it prints), the peak GiB, the bytes it added under ``root``, and each
+    kernel's launches, held to ``want`` exactly."""
+    import contextlib
+    import io
+
+    from ladine_tpu_torch import kernels as K
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    before = dir_bytes(root)
+    K.launch_counts.clear()
+    vjp = K.vjp_runs["flash_attention"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    seconds = time.perf_counter() - t0
+    assert rc == 0, (label, rc)
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    counts = {k: K.launch_counts[k] for k in KERNELS if K.launch_counts[k]}
+    line = (f"  {label}: {seconds:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{(dir_bytes(root) - before) / 2**30:.2f} GiB written, launches {counts}")
+    if train_images and "train_seconds" in result:
+        line += (f", K3 VJP runs {K.vjp_runs['flash_attention'] - vjp}; training {result['train_images']} images "
+                 f"in {result['train_seconds']:.2f} s, {result['train_images'] / result['train_seconds']:.1f} "
+                 "images/s")
+    print(line)
+    assert counts == {k: v for k, v in want.items() if v}, (label, counts, want)
+    return result, counts
+
+
+def eval_launches(chain, batches: int, attack_forwards: int = 0):
+    """A --test run's launches over ``batches`` batches of one shape: the
+    first batch's sampling is the graph's eager warm-up, its capture, then
+    a replay, so its heads and chain count twice."""
+    want = {k: v * (batches + 1) for k, v in chain.items()}
+    want["flash_attention"] = 5 * (batches + 1) + attack_forwards * VIT_DEPTH * batches
+    return want
+
+
+def run_cli_pipeline():
+    """Phase 9: the README's three stages through the port's CLIs at full
+    width, then --test, the --suite and --calib from the cached samples.
+    Returns each kernel's launches over the phase and the shapes to hold."""
+    from ladine_tpu_torch.cli import assemble, main as cli_main, train_mapping, train_transformer
+    from ladine_tpu_torch.infer import temperature_search, tune_temperature_nll
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, CLI_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total = dict.fromkeys(KERNELS, 0)
+    try:
+        cfg_path = cli_config(root, root)
+        cli_corpus(root)
+        models, exp = os.path.join(root, "models"), os.path.join(root, "exp")
+        w = FULL_WIDTHS
+        data = ["--dataset", "PathMNIST", "--dataroot", root, "--preprocess", "grayscaled", "--device", "cuda",
+                "--image_size", str(w["img"]), "--patch_size", str(w["patch"]), "--embed_dim", str(w["embed"]),
+                "--depth", str(w["depth"]), "--num_heads", str(w["heads"])]
+        steps = -(-CLI_CORPUS["train"] // TRAIN_BATCH)
+        runs = []
+        res, c = run_cli("train_transformer (1 epoch, ViT-B/16 fp32, AdamW)", train_transformer.main,
+                         data + ["--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--eval_batch_size",
+                                 str(TRAIN_BATCH), "--out", models],
+                         {"flash_attention": VIT_DEPTH * (steps + 1)}, root)
+        assert np.isfinite(res["last_loss"]), res
+        runs.append(c)
+        vit_ckpt = os.path.join(models, "vit_PathMNIST")
+        res, c = run_cli("train_mapping (1 epoch, five MLPs fp32, Adam)", train_mapping.main,
+                         data + ["--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--num_members", "5",
+                                 "--vit_ckpt", vit_ckpt, "--out", models, "--mlp_hidden_dims",
+                                 *map(str, w["mlp"])],
+                         {"flash_attention": 5 * (steps + 1)}, root)
+        assert len(res["best_val_accuracies"]) == 5 and np.isfinite(res["last_losses"]).all(), res
+        runs.append(c)
+        guidance = os.path.join(models, "guidance_PathMNIST")
+        res, c = run_cli("assemble", assemble.main,
+                         ["--vit_ckpt", vit_ckpt, "--mlp_ckpt_dir", os.path.join(models, "PathMNIST", "MLPs"),
+                          "--out", guidance], {}, root)
+        assert res["num_members"] == 5, res
+        common = ["--config", cfg_path, "--exp", exp, "--device", "cuda"]
+        res, c = run_cli("main --train (1 epoch, five members, lowmem, light checkpoint)", cli_main.main,
+                         common + ["--doc", "train", "--train", "--guidance_ckpt", guidance, "--set",
+                                   "optim.lowmem=true", "--light_ckpt", "--val_ddim", str(CLI_VAL_DDIM)],
+                         {"flash_attention": 5 * (steps + 1), "fused_linear_act": 3 * CLI_VAL_DDIM}, root)
+        assert np.isfinite(res["last_losses"]).all(), res
+        runs.append(c)
+        ckpt = res["best_ckpt_path"]
+        from ladine_tpu_torch.utils import best_checkpoint_name, load_checkpoint_meta
+
+        meta = load_checkpoint_meta(ckpt)
+        assert os.path.basename(ckpt) == best_checkpoint_name("diffu_all", 0, 0, res["best_accuracy"]), ckpt
+        assert meta["light"] and meta["lowmem"] and meta["ema_init"] == "zero" and "guidance_src" in meta, meta
+        print(f"    best checkpoint {os.path.basename(ckpt)}: {dir_bytes(ckpt) / 2**30:.2f} GiB, guidance "
+              f"referenced at {meta['guidance_src']['guidance_ckpt']}")
+        batches = -(-CLI_CORPUS["test"] // CLI_TEST_BATCH)
+        test = common + ["--diffusion_ckpt", ckpt, "--ddim", str(CLI_DDIM), "--mc_trials", "20", "--set",
+                         f"testing.batch_size={CLI_TEST_BATCH}"]
+        res, c = run_cli(f"main --test (DDIM-{CLI_DDIM}, 20 trials, batch {CLI_TEST_BATCH}, --save_samples)",
+                         cli_main.main, test + ["--doc", "test", "--test", "--save_samples"],
+                         eval_launches({"fused_linear_act": 3 * CLI_DDIM}, batches), root)
+        runs.append(c)
+        with open(os.path.join(exp, "logs", "test", "report.json")) as f:
+            report = json.load(f)
+        assert report["num_instances"] == CLI_CORPUS["test"] and report["num_samples"] == 100, report
+        dump = np.load(os.path.join(exp, "logs", "test", "samples.npz"))
+        assert dump["samples"].shape == (100, CLI_CORPUS["test"], 2) and np.isfinite(dump["samples"]).all()
+        from ladine_tpu_torch.metrics import ensemble_confidence
+
+        probs = ensemble_confidence(torch.from_numpy(dump["samples"]), report["temperature"])
+        assert torch.allclose(probs.sum(-1), torch.ones(CLI_CORPUS["test"]), atol=1e-5), probs.sum(-1)
+        print(f"    test report: majority-vote accuracy {report['majority_vote_accuracy']:.2f} %, ECE "
+              f"{report['ece']:.4f}, per member {report['per_member_mv_accuracy']}; probs rows sum to 1 "
+              f"(max |sum - 1| {float((probs.sum(-1) - 1).abs().max()):.2e})")
+        suite_path = os.path.join(root, "suite.json")
+        with open(suite_path, "w") as f:
+            json.dump({name: o for name, (o, _) in CLI_SUITE.items()}, f)
+        want = dict.fromkeys(KERNELS, 0)
+        for name, (o, chain) in CLI_SUITE.items():
+            row = eval_launches(chain, batches, PGD_FORWARDS if o.get("attack_name") == "PGD" else 0)
+            for k, v in row.items():
+                want[k] += v
+        res, c = run_cli("main --test --suite (noise, PGD, parity, use_int8_pallas, + pallas_fuse_ends)",
+                         cli_main.main, test + ["--doc", "suite", "--test", "--suite", suite_path], want, root)
+        for name, row in res["rows"].items():
+            print(f"    suite row {name}: {row}")
+            assert all(np.isfinite(v) for v in row.values()), (name, row)
+        runs.append(c)
+        samples_path = os.path.join(exp, "logs", "test", "samples.npz")
+        res, c = run_cli("main --calib --cached_samples --tune_T", cli_main.main,
+                         common + ["--doc", "calib", "--calib", "--cached_samples", samples_path, "--tune_T"], {},
+                         root)
+        t_best, _ = temperature_search(dump["samples"], dump["labels"])
+        t_nll = tune_temperature_nll(dump["samples"], dump["labels"])
+        print(f"    calibrated temperature {res['calibrated_temperature']:.6f} (the test's samples through "
+              f"temperature_search: {t_best:.6f}); NLL-tuned {res['nll_tuned_temperature']:.6f} "
+              f"(tune_temperature_nll: {t_nll:.6f})")
+        assert res["calibrated_temperature"] == t_best and res["nll_tuned_temperature"] == t_nll, res
+        for c in runs:
+            for k, v in c.items():
+                total[k] += v
+        print(f"  _smoke_cli/ at its largest: {dir_bytes(root) / 2**30:.2f} GiB")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def check_cli_shapes(entries):
+    """After phase 9's counted run (not counted): each kernel against its
+    plain version at the shapes and dtypes phase 9 gave it that phases 2
+    and 8 did not: K3 in float32 (the stage-1 CLIs train the ViT in
+    float32, as the JAX CLIs do) at batch 30, on the taps' bare patches and
+    the classifier's patches and cls token; K1 in bf16 at the validation
+    sampler's 30 rows a member (five members, one trial, lin1 gated by the
+    float32 features, then lin2/lin3). Each entry's ``max_abs_err`` takes
+    the largest error, and ``phase9`` lists them."""
+    from ladine_tpu_torch import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    by_name = {e["name"]: e for e in entries}
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, got, want, tol):
+        torch.cuda.synchronize()
+        err = compare(f"{name} {label}", got, want, tol)
+        by_name[name].setdefault("phase9", {})[label] = err
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    w = FULL_WIDTHS
+    patches = (w["img"] // w["patch"]) ** 2
+    for n in (patches, patches + 1):
+        qkv = rnd(TRAIN_BATCH, n, 3, w["heads"], w["embed"] // w["heads"], lo=-2.0, hi=2.0)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        held("flash_attention", f"{tuple(q.shape)} fp32", K.flash_attention(q, k, v),
+             K.flash_attention_plain(q, k, v), 1e-4)
+        print(f"    ms={cuda_ms(lambda: K.flash_attention(q, k, v), 50):.4f}")
+    m, r, f_ = 5, TRAIN_BATCH, w["feature"]
+    f = rnd(m, r, f_)
+    y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=torch.bfloat16)
+    w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=torch.bfloat16)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=torch.bfloat16)
+    w2 = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=torch.bfloat16)
+    for label, args in ((f"lin1 y_in{tuple(y_in.shape)} bf16, gate fp32", (y_in, w1, a, c, f)),
+                        (f"lin2/lin3 {tuple(h.shape)}x{tuple(w2.shape)} bf16", (h, w2, a, c, None))):
+        held("fused_linear_act", label, K.fused_linear_act(*args), K.fused_linear_act_plain(*args), 2e-2)
+
+
 def serve_behind_batcher(predict, label):
     """A MicroBatcher(max_batch=8) in front of ``predict``, three callers at
     once (1, 3 and 4 images): each gets its own rows of fewer device calls
@@ -1527,13 +1804,23 @@ def main() -> int:
     print(f"  phase 8 in {time.perf_counter() - t8:.0f} s; launches {train_launches}")
     print("  phase 8's kernels against their plain versions at its shapes (not counted)")
     check_training_shapes(entries)
+    print(f"== phase 9: the command-line pipeline at full width (train_transformer, train_mapping, assemble, "
+          f"main --train, --test, --suite, --calib) [{time.perf_counter() - start:.0f} s]")
+    full.clear()
+    free_memory()
+    t9 = time.perf_counter()
+    cli_launches = run_cli_pipeline()
+    print(f"  phase 9 in {time.perf_counter() - t9:.0f} s; launches {cli_launches}")
+    print("  phase 9's kernels against their plain versions at its new shapes (not counted)")
+    check_cli_shapes(entries)
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
         e["bundle_launches"] = bundle_launches.get(e["name"], 0)
         e["eval_launches"] = eval_launches.get(e["name"], 0)
         e["train_launches"] = train_launches.get(e["name"], 0)
-        if e["launches"] == 0 or e["eval_launches"] == 0 or e["train_launches"] == 0:
+        e["cli_launches"] = cli_launches.get(e["name"], 0)
+        if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

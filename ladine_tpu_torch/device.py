@@ -17,3 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def cli_device(device: str) -> torch.device:
+    """:func:`resolve_device` for a command line: without a card, an exit
+    with a message instead of a traceback."""
+    try:
+        return resolve_device(device)
+    except RuntimeError:
+        raise SystemExit(f"--device {device}: CUDA is not available on this machine; pass --device cpu "
+                         "to run on the CPU") from None

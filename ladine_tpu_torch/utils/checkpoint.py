@@ -7,12 +7,22 @@ package writes the tree with orbax; here it is one ``torch.save`` file
 a checkpoint runs no pickled code. The tree is nested dicts (and lists) of
 tensors and plain values. The port cannot read the JAX package's orbax
 directories, nor the JAX package this one's.
+
+Train states (``train/``: a ``MemberTrainState`` of stacked diffusion
+members, or a ``TrainState`` of the ViT or the mapping MLPs) are saved as
+``{"states": {field: ...}, "guidance": ...}`` by :func:`save_train_state`,
+float32 or with ``lowmem``'s bfloat16 moments and EMA as they are, the
+member states marked ``meta["ema_init"] = "zero"`` (the debiased
+accumulator ``train/ema.py::ema_params_from_ckpt`` reads). A light
+checkpoint keeps only what evaluation reads (params, EMA, batch statistics
+and the update counts), its float tensors in a compute dtype.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -60,3 +70,55 @@ def load_checkpoint_meta(path: str) -> Dict:
 def best_checkpoint_name(kind: str, member: int, epoch: int, accuracy: float) -> str:
     """The reference's naming scheme: ``diffu{k}_ckpt_best_eph{E}_acc{A}``."""
     return f"{kind}{member}_ckpt_best_eph{epoch}_acc{accuracy:.4f}"
+
+
+_LIGHT_FIELDS = ("params", "ema", "batch_stats", "step")
+
+
+def _cast(tensors: Dict[str, torch.Tensor], dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    if dtype is None:
+        return tensors
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tensors.items()}
+
+
+def save_train_state(path: str, state: Any, metadata: Optional[Dict] = None, guidance: Any = None,
+                     light: bool = False, light_dtype: Optional[torch.dtype] = None) -> Dict:
+    """Write a train state (its fields by name) and ``guidance`` (a state
+    dict, or None) into the checkpoint directory ``path``. Member states
+    get ``meta["ema_init"] = "zero"`` and ``meta["lowmem"]`` (bfloat16
+    EMA), then ``metadata`` wins. ``light`` (member states): params, EMA,
+    batch statistics and steps only, float tensors cast to ``light_dtype``
+    (None: as they are). Returns the metadata written."""
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    meta: Dict[str, Any] = {"light": bool(light)}
+    if "ema" in fields:
+        meta["ema_init"] = "zero"
+        meta["lowmem"] = next(iter(fields["ema"].values())).dtype == torch.bfloat16
+    meta.update(metadata or {})
+    if light:
+        if "ema" not in fields:
+            raise ValueError("a light checkpoint is of diffusion-member states (they carry an EMA)")
+        fields = {k: fields[k] for k in _LIGHT_FIELDS}
+        fields["params"] = _cast(fields["params"], light_dtype)
+        fields["ema"] = _cast(fields["ema"], light_dtype)
+    save_checkpoint(path, {"states": fields, "guidance": guidance}, meta)
+    return meta
+
+
+def load_train_state(path: str, device: Any = "cpu") -> Tuple[Any, Any, Dict]:
+    """(states, guidance, metadata) of a :func:`save_train_state`
+    checkpoint, tensors on ``device``: a ``MemberTrainState`` or
+    ``TrainState``, or for a light checkpoint the dict of its fields."""
+    from ladine_tpu_torch.train import MemberTrainState, TrainState
+
+    tree, meta = load_checkpoint(path, map_location=device)
+    if "states" not in tree:
+        raise ValueError(f"{path} is not a train-state checkpoint (kind={meta.get('kind')!r})")
+    st = tree["states"]
+    if meta.get("light"):
+        states = st
+    elif "ema" in st:
+        states = MemberTrainState(**st)
+    else:
+        states = TrainState(**st)
+    return states, tree.get("guidance"), meta

@@ -143,6 +143,12 @@ def vit_from_flax(variables) -> Dict[str, torch.Tensor]:
     return _from_flax(variables, _vit_table(variables["params"], "", ("params",)))
 
 
+def mlp_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """flax ``MappingMLP`` variables ``{"params": ...}`` (a stage-1b
+    checkpoint's tree) -> the port's ``MappingMLP`` state_dict."""
+    return _from_flax(variables, _mlp_table(len(variables["params"])))
+
+
 def guidance_to_flax(state_dict, depth: int, n_mlps: int, n_layers: int = 4) -> Dict[str, Any]:
     """The port's ``SEViTGuidance`` state_dict -> flax variables."""
     skeleton = {"vit": {f"block{i}": None for i in range(depth)}}

@@ -3,6 +3,9 @@
 * No module of ladine_tpu_torch, and not chip_smoke.py, imports jax, flax,
   optax, orbax or the JAX package. The check reads the source (AST), not
   ``sys.modules``: jax may already be imported by the interpreter's startup.
+* None imports PyYAML (the card machine has none: the config reads and
+  writes its YAML itself), and PIL and matplotlib (absent there too) are
+  imported only inside the functions that decode an image or draw a plot.
 * Entry points run on the card by default and raise without CUDA, unless the
   caller passes ``device="cpu"``: the models, the schedule, the predictor,
   the trainers' state makers, the hand-off from training to serving and
@@ -15,6 +18,8 @@ import pathlib
 import pytest
 import torch
 
+from ladine_tpu_torch.cli.runner import Runner
+from ladine_tpu_torch.config import Config
 from ladine_tpu_torch.examples.gmm_posterior import run as gmm_run
 from ladine_tpu_torch.infer import Predictor
 from ladine_tpu_torch.models import ConditionalModel, MappingMLP, SEViTGuidance, ViT
@@ -37,9 +42,10 @@ def _sources():
     return files
 
 
-@pytest.mark.parametrize("package", ["train", "data", "examples", "models", "kernels", "infer", "utils"])
+@pytest.mark.parametrize("package", ["train", "data", "examples", "models", "kernels", "infer", "utils", "cli"])
 def test_guard_reads_every_subpackage(package):
-    """The training, data and example subpackages are read like the rest."""
+    """The training, data, example and command-line subpackages are read
+    like the rest."""
     read = {p.relative_to(ROOT / "ladine_tpu_torch").parts[0] for p in _sources()[:-1]}
     assert package in read
     assert all(p in _sources() for p in (ROOT / "ladine_tpu_torch" / package).glob("*.py"))
@@ -58,6 +64,28 @@ def _top_level_imports(path):
 def test_port_imports_nothing_of_jax(path):
     bad = sorted(set(_top_level_imports(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"
+
+
+# optional packages the card machine lacks: where the port may import each
+OPTIONAL = {"yaml": set(), "PIL": {"data/imagefolder.py"}, "matplotlib": {"utils/plots.py"}}
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_only_inside_their_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    module_level = {n for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))
+                    for n in _top_level_imports_of(node)}
+    anywhere = set(_top_level_imports(path))
+    rel = str(path.relative_to(ROOT / "ladine_tpu_torch")) if "ladine_tpu_torch" in path.parts else path.name
+    for name, allowed in OPTIONAL.items():
+        assert name not in module_level, f"{path} imports {name} at module level"
+        assert name not in anywhere or rel in allowed, f"{path} imports {name}"
+
+
+def _top_level_imports_of(node):
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    return [node.module.split(".")[0]] if node.level == 0 else []
 
 
 def test_guard_checks_the_top_level_name(tmp_path):
@@ -84,6 +112,7 @@ ENTRY_POINTS = {
         create_member_states(ConditionalModel(2, 12, 4, 4, 2, 11, device="meta"), torch.Generator(),
                              make_optimizer(), 2, device="cpu"), **kw),
     "gmm_posterior": lambda **kw: gmm_run(n_train_steps=1, mc_trials=1, verbose=False, **kw),
+    "runner": lambda **kw: Runner(Config(), log_dir=None, demo=True, **kw),
 }
 
 
