@@ -58,8 +58,10 @@ Phases, each fatal on failure (no failure is caught):
    fed requests of 1, 3 and 4 images from three threads: each caller gets
    its own rows of fewer device calls than requests.
 6. The AOT bundle at full width, on the phase-4 modules:
-   ``Predictor.export_serving`` of the parity predictor at batch 8 (K1 3000,
-   K3 5 launches a request) and of ``serving`` + ``use_int8_pallas`` +
+   ``Predictor.export_serving`` of the float predictor (the parity preset
+   over the DDIM-50 chain: K1 150, K3 5 launches a request; the 1000-step
+   chain's export took 205-343 s of host time) at batch 8 and of
+   ``serving`` + ``use_int8_pallas`` +
    ``pallas_fuse_ends`` at ``MicroBatcher.bucket_sizes(8)`` (K5a and K5b
    50, K3 5), each into a directory beside this script (``_smoke_bundle``,
    deleted after its checks: ~12.6 GiB of free disk), with the export
@@ -136,6 +138,28 @@ Phases, each fatal on failure (no failure is caught):
    ``tune_temperature_nll`` on the test's samples. Then, not counted, K3 in
    float32 at batch 30 and K1 at the validation's 30 rows a member against
    their plain versions (``check_cli_shapes``).
+10. The rest of the single-card surface at full width (nothing cut from the
+   paper's widths; random weights drawn on the card from seeds). (b) On
+   phase 9's corpus before it is deleted, ``train_transformer`` for every
+   other ``--model_arch`` at 224, batch 30, one epoch in float32:
+   ``deit``, ``deit_distilled``, ``convit`` (base: 16 heads, GPSA in 10 of
+   12 blocks), ``efficientnetv2`` (variant l), ``resnet18``, ``resnet50``,
+   each with its seconds, images/s, peak GiB, bytes written and K3's
+   launches and VJP runs held exact (DeiT 12 a forward, ConViT 2, the rest
+   0). (a) F5: five guidance-free (``--no_cat_f_phi``) linear members
+   behind phase 4's guidance (rebuilt from its seed): a ``parity`` request
+   eager and graphed, equal exactly (K1 3000, K3 5), ``serving`` +
+   ``use_int8_pallas`` (K4 100) and + ``pallas_fuse_ends`` (K5a, K5b 50,
+   ``K5_RTOL``), then three train steps of one member (fp32 Adam and EMA)
+   with ms a step and peak GiB. (c) An ``arch="simple"`` ``Predictor`` of
+   five full-width members (150528 -> 300 -> 100 -> 4096): a ``parity``
+   request eager and graphed, equal (K1 3000); then ``encode`` at batch 8
+   for five ``resnet18``/``resnet50`` members on 224x224x3 and
+   ``lenet``/``lenet5``/``fashioncnn`` ones on 28x28x1, each against the
+   same model on the CPU. Then, not counted, K1 at K = 2, K5a's lin1 pass
+   and K5a at Ci = 2, and K3 in float32, forward and VJP, at (30, 198, 12,
+   64) and (30, 197, 16, 48) against their plain versions
+   (``check_phase10_shapes``).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -793,11 +817,11 @@ def run_artifact_surface(guidance, model, sched, images, parity_out):
     return launches
 
 
-def run_bundles(guidance, model, sched, images, parity_out):
+def run_bundles(guidance, model, sched, images, **_):
     """Phase 6: the AOT bundle at full width, on the phase-4 modules: the
-    parity bundle at batch 8, then the serving + K5 bundle at the batcher's
-    buckets behind a MicroBatcher. Returns each kernel's launches over the
-    two bundles' batch-8 requests."""
+    float bundle (the parity preset at DDIM-50) at batch 8, then the
+    serving + K5 bundle at the batcher's buckets behind a MicroBatcher.
+    Returns each kernel's launches over the two bundles' batch-8 requests."""
     import ladine_tpu_torch as L
     from ladine_tpu_torch import kernels as K
     from ladine_tpu_torch.infer import ExportedPredictor, MicroBatcher
@@ -805,7 +829,10 @@ def run_bundles(guidance, model, sched, images, parity_out):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BUNDLE_DIR)
     launches = dict.fromkeys(KERNELS, 0)
     cases = (
-        ("parity", dict(preset="parity"), (BATCH,), {"fused_linear_act": 3000, "flash_attention": 5}, 0.0),
+        # the float chain's round trip at DDIM-50: the 1000-step chain's export
+        # took 205-343 s of host time (~20x the nodes)
+        ("float DDIM-50", dict(preset="parity", ddim_steps=50, ddim_eta=1.0), (BATCH,),
+         {"fused_linear_act": 3 * 50, "flash_attention": 5}, 0.0),
         ("serving + use_int8_pallas + pallas_fuse_ends",
          dict(preset="serving", use_int8_pallas=True, pallas_fuse_ends=True), MicroBatcher.bucket_sizes(BATCH),
          {"int8_eps_fused_l12": 50, "int8_eps_fused_l34": 50, "flash_attention": 5}, K5_RTOL),
@@ -813,11 +840,8 @@ def run_bundles(guidance, model, sched, images, parity_out):
     for label, kw, sizes, want, rtol in cases:
         live = L.Predictor.from_preset(kw.pop("preset"), guidance=guidance, model=model, sched=sched,
                                        mc_trials=20, **kw)
-        if label == "parity":
-            live_out = parity_out  # phase 4's first parity request, same generator
-        else:
-            live.predict(images, generator=generator(PARITY_SEED))  # captures the batch's graph
-            live_out = live.predict(images, generator=generator(PARITY_SEED))
+        live.predict(images, generator=generator(PARITY_SEED))  # captures the batch's graph
+        live_out = live.predict(images, generator=generator(PARITY_SEED))
         shutil.rmtree(path, ignore_errors=True)
         try:
             t0 = time.perf_counter()
@@ -855,7 +879,7 @@ def run_bundles(guidance, model, sched, images, parity_out):
         assert counts == {k: want.get(k, 0) for k in KERNELS}, (label, counts, want)
         for k, v in counts.items():
             launches[k] += v
-        if label != "parity":
+        if label != "float DDIM-50":
             serve_behind_batcher(served.predict, "the loaded serving + K5 bundle")
         del served
         torch.cuda.empty_cache()
@@ -1039,16 +1063,16 @@ def probes(tensors):
     return {k: v.reshape(-1)[:: max(1, v.numel() >> 20)].clone() for k, v in tensors.items()}
 
 
-def timed_steps(run_step, label, k3_per_step, vjp_per_step=None, warm_up=True):
-    """``TRAIN_STEPS`` calls of ``run_step`` (after one warm-up call unless
-    the caller made it), each synchronized: the host-clock ms of each, and
-    K3's forward launches (and its VJP's runs) held exact a step."""
+def timed_steps(run_step, label, k3_per_step, vjp_per_step=None, warm_up=True, steps=TRAIN_STEPS):
+    """``steps`` calls of ``run_step`` (after one warm-up call unless the
+    caller made it), each synchronized: the host-clock ms of each, and K3's
+    forward launches (and its VJP's runs) held exact a step."""
     from ladine_tpu_torch import kernels as K
 
     if warm_up:
         run_step()
     times = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         n3, nv = K.launch_counts["flash_attention"], K.vjp_runs["flash_attention"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1059,7 +1083,7 @@ def timed_steps(run_step, label, k3_per_step, vjp_per_step=None, warm_up=True):
         if vjp_per_step is not None:
             assert K.vjp_runs["flash_attention"] - nv == vjp_per_step, (label, K.vjp_runs["flash_attention"] - nv)
     ms = float(np.mean(times))
-    print(f"  {label}: {ms:.1f} ms a step (min {min(times):.1f}, max {max(times):.1f}; {TRAIN_STEPS} steps after "
+    print(f"  {label}: {ms:.1f} ms a step (min {min(times):.1f}, max {max(times):.1f}; {steps} steps after "
           f"a warm-up), {TRAIN_BATCH / ms * 1e3:.1f} images/s; K3 launches {k3_per_step} a step"
           + (f", its VJP {vjp_per_step} a step" if vjp_per_step is not None else ""))
     return ms, out
@@ -1098,10 +1122,11 @@ def check_first_update(state, lowmem, before_params, before_stats, losses):
           f"against {read:.6f} x the parameters: largest relative error {worst:.2e} (bound {bound:.2e})")
 
 
-def train_members(guidance, sched, members, heads, lowmem, label):
+def train_members(guidance, sched, members, heads, lowmem, label, steps=TRAIN_STEPS, include_guidance=True):
     """(a) or (b): the full train step (the bf16 guidance's heads, then each
     member's update in bf16 compute) on a state of ``members`` members, its
-    first update checked (c), then ``TRAIN_STEPS`` timed steps."""
+    first update checked (c), then ``steps`` timed steps; members without
+    the guidance concat with ``include_guidance=False`` (phase 10 (a))."""
     from ladine_tpu_torch.models import ConditionalModel
     from ladine_tpu_torch.train import create_member_states, make_full_train_step, make_optimizer
 
@@ -1111,7 +1136,7 @@ def train_members(guidance, sched, members, heads, lowmem, label):
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(80 + members)
     compute = ConditionalModel(members, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"],
-                               device="meta", dtype=torch.bfloat16)
+                               guidance=include_guidance, device="meta", dtype=torch.bfloat16)
     tx = make_optimizer("Adam", 1e-3, lowmem=lowmem)
     state = create_member_states(compute, gen, tx, members, lowmem=lowmem, device="cuda")
     p_member = sum(v.numel() for v in state.params.values()) // members
@@ -1127,7 +1152,7 @@ def train_members(guidance, sched, members, heads, lowmem, label):
     check_first_update(state, lowmem, before_p, before_s, losses)
     # the first update was the warm-up
     ms, (state, losses) = timed_steps(lambda: step(state, images, labels, gen), label, max(heads) + 1,
-                                      warm_up=False)
+                                      warm_up=False, steps=steps)
     assert torch.isfinite(losses).all(), losses
     floor = FLOOR_BYTES_PER_PARAM[lowmem] * p_member * members
     floor_ms = floor / HBM_BYTES_PER_S * 1e3
@@ -1467,10 +1492,12 @@ def eval_launches(chain, batches: int, attack_forwards: int = 0):
     return want
 
 
-def run_cli_pipeline():
+def run_cli_pipeline(then=None):
     """Phase 9: the README's three stages through the port's CLIs at full
     width, then --test, the --suite and --calib from the cached samples.
-    Returns each kernel's launches over the phase and the shapes to hold."""
+    ``then(root, data_args)`` runs on the phase's corpus before it is
+    deleted (phase 10 (b)). Returns each kernel's launches over the phase
+    and what ``then`` returned."""
     from ladine_tpu_torch.cli import assemble, main as cli_main, train_mapping, train_transformer
     from ladine_tpu_torch.infer import temperature_search, tune_temperature_nll
 
@@ -1570,9 +1597,10 @@ def run_cli_pipeline():
             for k, v in c.items():
                 total[k] += v
         print(f"  _smoke_cli/ at its largest: {dir_bytes(root) / 2**30:.2f} GiB")
+        after = then(root, data) if then is not None else None
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return total
+    return total, after
 
 
 def check_cli_shapes(entries):
@@ -1616,6 +1644,192 @@ def check_cli_shapes(entries):
     for label, args in ((f"lin1 y_in{tuple(y_in.shape)} bf16, gate fp32", (y_in, w1, a, c, f)),
                         (f"lin2/lin3 {tuple(h.shape)}x{tuple(w2.shape)} bf16", (h, w2, a, c, None))):
         held("fused_linear_act", label, K.fused_linear_act(*args), K.fused_linear_act_plain(*args), 2e-2)
+
+
+# Phase 10: the rest of the single-card surface at full width. (b) the
+# stage-1 backbones through train_transformer, each --model_arch with its K3
+# forward launches a forward and VJP runs a train step (convit_base: the two
+# MHSA blocks after the ten GPSA ones; the others: none)
+STAGE1_ARCHS = {"deit": 12, "deit_distilled": 12, "convit": 2, "efficientnetv2": 0, "resnet18": 0, "resnet50": 0}
+F5_SEED = 10  # the guidance-free members' generator
+ENCODER_ARCHS = {"resnet18": (224, 224, 3), "resnet50": (224, 224, 3), "lenet": (28, 28, 1),
+                 "lenet5": (28, 28, 1), "fashioncnn": (28, 28, 1)}
+
+
+def phase4_guidance():
+    """Phase 4's bf16 guidance again: the same seeded generator, drawn first."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch.models import init_random_
+
+    guidance = L.SEViTGuidance(device="cuda", dtype=torch.bfloat16)
+    return init_random_(guidance, torch.Generator(device="cuda").manual_seed(0))
+
+
+def run_stage1_backbones(root, data):
+    """Phase 10 (b): ``train_transformer`` for every backbone but the ViT
+    (phase 9's run) at 224, batch 30, one epoch in float32 on phase 9's
+    corpus: seconds, images/s, peak GiB, bytes written and K3's launches
+    and VJP runs, held exact. Returns the launches over the runs."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.cli import train_transformer
+
+    steps = -(-CLI_CORPUS["train"] // TRAIN_BATCH)
+    total = dict.fromkeys(KERNELS, 0)
+    for arch, k3 in STAGE1_ARCHS.items():
+        argv = data + ["--model_arch", arch, "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--eval_batch_size",
+                       str(TRAIN_BATCH), "--out", os.path.join(root, "models10")]
+        if arch == "efficientnetv2":
+            argv += ["--effnet_variant", "l"]
+        vjp = K.vjp_runs["flash_attention"]
+        res, counts = run_cli(f"(b) train_transformer --model_arch {arch}", train_transformer.main, argv,
+                              {"flash_attention": k3 * (steps + 1)}, root)
+        assert K.vjp_runs["flash_attention"] - vjp == k3 * steps, (arch, K.vjp_runs["flash_attention"] - vjp)
+        assert np.isfinite(res["last_loss"]), res
+        assert os.path.isdir(os.path.join(root, "models10", f"{arch}_PathMNIST")), arch
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def run_f5(sched, images):
+    """Phase 10 (a): five guidance-free (``--no_cat_f_phi``) linear members at
+    full width behind phase 4's guidance: a parity request eager and
+    graphed (equal exactly), + use_int8_pallas (K4) and + pallas_fuse_ends
+    (K5a, K5b), then three train steps of one member (fp32 Adam and EMA).
+    Returns each kernel's launches."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.models import init_random_
+
+    K.launch_counts.clear()
+    guidance = phase4_guidance()
+    W = FULL_WIDTHS
+    model = L.ConditionalModel(5, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"], guidance=False,
+                               device="cuda", dtype=torch.bfloat16)
+    init_random_(model, torch.Generator(device="cuda").manual_seed(F5_SEED))
+    assert model.lin1.linear.weight.shape == (5, 2, W["feature"])
+    pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
+    eager_vs_graph(pred, images, "(a) guidance=False parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    del pred
+    for name in ("serving + use_int8_pallas", "serving + use_int8_pallas + pallas_fuse_ends"):
+        serve_int8(guidance, model, sched, images, name)
+    del model
+    free_memory()
+    train_members(guidance, sched, 1, (PER_MEMBER_HEAD,), False, "(a) one guidance-free member, fp32 Adam and EMA",
+                  steps=3, include_guidance=False)
+    free_memory()
+    return {k: K.launch_counts[k] for k in KERNELS}
+
+
+def run_encoder_archs(sched, images):
+    """Phase 10 (c): an ``arch="simple"`` Predictor of five full-width
+    members (150528 -> 300 -> 100 -> 4096) behind phase 4's guidance, a
+    parity request eager and graphed (equal exactly); then ``encode`` at
+    batch 8 for the conv archs' five members, each against the same model
+    on the CPU (the plain versions, the same weights). Returns the
+    launches."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.models import init_random_
+
+    K.launch_counts.clear()
+    W = FULL_WIDTHS
+    guidance = phase4_guidance()
+    model = L.ConditionalModel(5, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"], device="cuda",
+                               dtype=torch.bfloat16, arch="simple")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(11))
+    pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
+    eager_vs_graph(pred, images, "(c) arch simple parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    launches = {k: K.launch_counts[k] for k in KERNELS}
+    del pred, model, guidance
+    free_memory()
+    rng = np.random.default_rng(12)
+    for arch, shape in ENCODER_ARCHS.items():
+        data_dim = int(np.prod(shape))
+        model = L.ConditionalModel(5, data_dim, W["feature"], W["hidden"], 2, W["n_steps"], device="cuda",
+                                   dtype=torch.bfloat16, arch=arch)
+        init_random_(model, torch.Generator(device="cuda").manual_seed(13))
+        x = torch.from_numpy(rng.random((BATCH,) + shape, dtype="float32"))
+        with torch.inference_mode():
+            model.encode(x.cuda())  # cuDNN's first call picks its algorithms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.encode(x.cuda())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            cpu = L.ConditionalModel(5, data_dim, W["feature"], W["hidden"], 2, W["n_steps"], device="cpu",
+                                     dtype=torch.bfloat16, arch=arch)
+            cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            want = cpu.encode(x)
+        n_enc = sum(v.numel() for k, v in model.state_dict().items() if k.startswith("encoder_x.")) // 5
+        tol = 1e-4 * float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        print(f"  (c) encode, arch {arch}: images {(BATCH,) + shape}, five members of {n_enc / 1e6:.2f} M encoder "
+              f"parameters, {ms:.1f} ms on the card; against the CPU: max_abs_err={err:.3e} (tol {tol:.3e}) -> "
+              f"{'ok' if err <= tol else 'FAIL'}")
+        assert got.shape == (5, BATCH, W["feature"]) and bool(torch.isfinite(got).all()) and err <= tol, arch
+        del model, cpu
+        free_memory()
+    return launches
+
+
+def check_phase10_shapes(entries):
+    """After phase 10's counted run (not counted): each kernel against its
+    plain version at the shapes phase 10 gave it that earlier phases did
+    not: K1 lin1 at K = 2 (y_t alone: bf16 rows of 4 bytes, the float32
+    features as the gate), K5a's lin1 pass and K5a whole at Ci = 2, and K3
+    in float32, forward and VJP, at DeiT-distilled's 198 tokens (12 heads
+    of 64) and ConViT-base's 197 tokens of 16 heads of D = 48. Each entry's
+    ``max_abs_err`` takes the largest error, and ``phase10`` lists them."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    by_name = {e["name"]: e for e in entries}
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, got, want, tol):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(compare(f"{name} {label}", a, b, tol) for a, b in zip(got, want))
+        by_name[name].setdefault("phase10", {})[label] = err
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    m, r, f_ = 5, 20 * BATCH, FULL_WIDTHS["feature"]
+    f = rnd(m, r, f_)
+    y_in = rnd(m, r, 2, lo=-2.0, hi=2.0, dtype=torch.bfloat16)
+    w1 = rnd(m, 2, f_, lo=-0.7, hi=0.7, dtype=torch.bfloat16)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    held("fused_linear_act", f"lin1 K = 2 y_in{tuple(y_in.shape)} bf16, gate fp32",
+         K.fused_linear_act(y_in, w1, a, c, f), K.fused_linear_act_plain(y_in, w1, a, c, f), 2e-2)
+    fb = f.to(torch.bfloat16)
+    codes, xmax = K.int8_lin1(fb, y_in, w1, a, c)
+    want_codes, want_max = K.int8_lin1_plain(fb, y_in, w1, a, c)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(codes, want_codes)) and bool(torch.equal(xmax, want_max))
+    print(f"  int8_eps_fused_l12 lin1 pass at Ci = 2, f{tuple(fb.shape)} bf16: codes and max|h1| equal the plain "
+          f"version's: {same}")
+    assert same, "K5a's lin1 pass at Ci = 2 differs from its plain version"
+    by_name["int8_eps_fused_l12"].setdefault("phase10", {})["lin1 pass Ci = 2 (codes equal)"] = 0.0
+    w2 = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5)
+    w_q, w_scale = Q.quantize_weight(w2)
+    s2 = (w_scale * a).contiguous()
+    args = (fb, y_in, w1, a, c, w_q, s2, c)
+    held("int8_eps_fused_l12", f"Ci = 2 f{tuple(fb.shape)} bf16", K.int8_eps_l12(*args), K.int8_eps_l12_plain(*args),
+         2e-2)
+    for label, (b, n, h, d) in (("DeiT-distilled", (TRAIN_BATCH, 198, 12, 64)),
+                                ("ConViT-base", (TRAIN_BATCH, 197, 16, 48))):
+        qkv = rnd(b, n, 3, h, d, lo=-2.0, hi=2.0).requires_grad_(True)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        held("flash_attention", f"{label} {(b, n, h, d)} fp32", K.flash_attention(q, k, v),
+             K.flash_attention_plain(q, k, v), 1e-4)
+        d_out = rnd(b, n, h, d)
+        (got,) = torch.autograd.grad(K.flash_attention(q, k, v), qkv, d_out)
+        (want,) = torch.autograd.grad(K.flash_attention_plain(q, k, v), qkv, d_out)
+        held("flash_attention", f"{label} {(b, n, h, d)} fp32 backward (kernel forward, plain VJP)", got, want, 1e-4)
+        print(f"    ms={cuda_ms(lambda: K.flash_attention(q, k, v), 20):.4f}")
 
 
 def serve_behind_batcher(predict, label):
@@ -1767,10 +1981,6 @@ def main() -> int:
     sys.path.insert(0, here)
     from ladine_tpu_torch.kernels import _build
 
-    # full fp32 where fp32 is asked for: no TF32 in matmuls or the patch conv
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     start = time.perf_counter()
     print("== phase 1: environment and build")
     card = gpu_line()
@@ -1806,13 +2016,38 @@ def main() -> int:
     check_training_shapes(entries)
     print(f"== phase 9: the command-line pipeline at full width (train_transformer, train_mapping, assemble, "
           f"main --train, --test, --suite, --calib) [{time.perf_counter() - start:.0f} s]")
+    sched, images = full["sched"], full["images"]
     full.clear()
     free_memory()
     t9 = time.perf_counter()
-    cli_launches = run_cli_pipeline()
-    print(f"  phase 9 in {time.perf_counter() - t9:.0f} s; launches {cli_launches}")
+    seconds10 = {}
+
+    def stage1_backbones(root, data):
+        print(f"  phase 9 in {time.perf_counter() - t9:.0f} s")
+        print(f"== phase 10: the rest of the single-card surface at full width: (b) the stage-1 backbones on "
+              f"phase 9's corpus [{time.perf_counter() - start:.0f} s]")
+        t = time.perf_counter()
+        out = run_stage1_backbones(root, data)
+        seconds10["(b)"] = time.perf_counter() - t
+        return out
+
+    cli_launches, backbone_launches = run_cli_pipeline(then=stage1_backbones)
+    print(f"  phase 9 launches {cli_launches}")
+    print(f"  (a) F5: guidance-free members (--no_cat_f_phi) [{time.perf_counter() - start:.0f} s]")
+    t = time.perf_counter()
+    f5_launches = run_f5(sched, images)
+    seconds10["(a)"] = time.perf_counter() - t
+    print(f"  (c) the encoder archs [{time.perf_counter() - start:.0f} s]")
+    t = time.perf_counter()
+    encoder_launches = run_encoder_archs(sched, images)
+    seconds10["(c)"] = time.perf_counter() - t
+    phase10_launches = {k: backbone_launches[k] + f5_launches[k] + encoder_launches[k] for k in KERNELS}
+    print(f"  phase 10 seconds by sub-phase: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(seconds10.items()))
+          + f"; launches (a) {f5_launches}, (b) {backbone_launches}, (c) {encoder_launches}")
     print("  phase 9's kernels against their plain versions at its new shapes (not counted)")
     check_cli_shapes(entries)
+    print("  phase 10's kernels against their plain versions at its new shapes (not counted)")
+    check_phase10_shapes(entries)
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
@@ -1820,7 +2055,8 @@ def main() -> int:
         e["eval_launches"] = eval_launches.get(e["name"], 0)
         e["train_launches"] = train_launches.get(e["name"], 0)
         e["cli_launches"] = cli_launches.get(e["name"], 0)
-        if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"]):
+        e["phase10_launches"] = phase10_launches.get(e["name"], 0)
+        if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

@@ -95,6 +95,9 @@ def main(argv=None) -> int:
     init_random_(vit, torch.Generator(device=dev).manual_seed(0))
     if args.vit_ckpt:
         tree, _ = load_checkpoint(args.vit_ckpt)
+        if set(tree["params"]) != set(vit.state_dict()):
+            raise SystemExit(f"--vit_ckpt {args.vit_ckpt} is not a ViT checkpoint of this geometry: the mapping "
+                             "stage taps the ViT only, as in the JAX package")
         vit.load_state_dict(tree["params"])
         logger.info(f"loaded frozen ViT from {args.vit_ckpt}")
     mlp = MappingMLP(vit.num_patches * embed, args.num_classes, mlp_dims, device="meta", dtype=torch.float32)

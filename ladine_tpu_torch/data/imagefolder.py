@@ -44,6 +44,14 @@ def _find_classes(directory: str) -> List[str]:
     return classes
 
 
+def png_writer():
+    """``write(array (H, W, C) uint8, path)``, a PNG through Pillow (imported
+    here: an ImportError without it)."""
+    from PIL import Image
+
+    return lambda arr, path: Image.fromarray(arr).save(path)
+
+
 def _list_samples(directory: str) -> Tuple[List[str], np.ndarray, List[str]]:
     classes = _find_classes(directory)
     paths: List[str] = []

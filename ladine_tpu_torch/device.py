@@ -3,6 +3,11 @@
 Every entry point takes ``device=`` and defaults to ``"cuda"``. Without a
 card it raises instead of quietly running on the CPU: the CPU is used only
 when the caller asks for it (``device="cpu"``), as the tests do.
+
+On the card the port computes float32 in float32, as the JAX package's
+float32 paths do: resolving a CUDA device turns TF32 off for matmuls and
+for cuDNN's convolutions (torch's default lets cuDNN use TF32), forward
+and backward, for the process.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev
 
 

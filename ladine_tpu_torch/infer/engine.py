@@ -61,7 +61,9 @@ def nested_ensemble_sample(
             (``kernels/int8.py``).
         use_int8_pallas: int8 lin2/lin3 through the K4 kernel; wins over
             ``use_int8_eps``. With ``pallas_fuse_ends`` the K5 kernels.
-        use_int8_encode: int8 enc_lin1 (``kernels.int8.int8_encode``).
+        use_int8_encode: int8 enc_lin1 (``kernels.int8.int8_encode``), arch
+            ``linear`` only: the conv archs keep their float encoder, and
+            ``Predictor`` asks for it only where the arch has enc_lin1.
         qmember, qenc: the resident int8 weights (``quantize_member``,
             ``quantize_encoder``); quantized in the call when None.
         sampler_table: the step coefficients (``ops.diffusion``'s

@@ -98,8 +98,7 @@ def _select_members(model: ConditionalModel, idx: Tuple[int, ...]) -> Conditiona
     if idx == tuple(range(model.members)):
         return model
     dtype = model.lin2.linear.weight.dtype
-    sub = ConditionalModel(len(idx), model.data_dim, model.feature_dim, model.hidden_dim, model.y_dim,
-                           model.n_steps, device="meta", dtype=dtype)
+    sub = model.like(len(idx), "meta", dtype)
     state = model.state_dict()
     index = torch.tensor(idx, device=next(iter(state.values())).device)
     sub.load_state_dict({k: v.index_select(0, index) for k, v in state.items()}, assign=True)
@@ -145,11 +144,11 @@ class EvalPipeline:
         tau = (ddim_timesteps(sched.num_timesteps, cfg.ddim_steps, cfg.skip_type).tolist()
                if cfg.ddim_steps else None)
         qmember, qenc, qheads = _int8_forms(guidance, model, idx, guidance.num_members, cfg.use_int8,
-                                            cfg.use_int8_pallas, cfg.use_int8_encode)
+                                            cfg.use_int8_pallas, cfg.use_int8_encode, model.arch)
         self.program = ServingProgram(
             guidance, model, sched, idx, temperature=cfg.temperature, mc_trials=cfg.mc_trials, tau=tau,
             eta=cfg.ddim_eta, noise_prior=cfg.noise_prior,
-            use_int8_eps=cfg.use_int8 and not cfg.use_int8_pallas, use_int8_encode=cfg.use_int8_encode,
+            use_int8_eps=cfg.use_int8 and not cfg.use_int8_pallas,
             use_int8_pallas=cfg.use_int8_pallas, pallas_fuse_ends=cfg.pallas_fuse_ends,
             qmember=qmember, qenc=qenc, qheads=qheads,
         )

@@ -26,6 +26,7 @@ launches and counts as any eager run does.
 from __future__ import annotations
 
 import collections
+import gc
 import threading
 import time
 from typing import Callable, Dict, NamedTuple, Tuple
@@ -33,6 +34,9 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from ladine_tpu_torch.kernels import _build
+
+# held by a capture while the garbage collector is off (see GraphCache._capture)
+_GC_OFF = threading.Lock()
 
 
 class _Graph(NamedTuple):
@@ -86,10 +90,22 @@ class GraphCache:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = collections.Counter(_build.launch_counts)
-        # thread_local: another thread's work on its own stream (a caller's
-        # noise draw, a copy to the host) does not void this capture
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = tuple(self._program(*static))
+        # no garbage collection inside the capture: collecting an unreachable
+        # CUDA graph there (a dropped predictor's) frees its memory, which a
+        # capture forbids, and voids this capture. The collector is the
+        # process's, so captures take one process-wide lock around it.
+        with _GC_OFF:
+            enabled = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                # thread_local: another thread's work on its own stream (a caller's
+                # noise draw, a copy to the host) does not void this capture
+                with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                    outputs = tuple(self._program(*static))
+            finally:
+                if enabled:
+                    gc.enable()
         launches = collections.Counter(_build.launch_counts) - before
         for name, n in launches.items():
             _build.launch_counts[name] -= n

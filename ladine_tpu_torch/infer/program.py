@@ -33,17 +33,18 @@ class ServingProgram(nn.Module):
     sampler's draws, (n_draws, M, mc_trials, B, y_dim) float32 (see
     ``infer.engine.nested_ensemble_sample``). ``qmember``, ``qenc`` and
     ``qheads`` are the resident int8 forms (``kernels/int8.py``), or None;
-    they are held as buffers, as are the schedule and the step table."""
+    they are held as buffers, as are the schedule and the step table. The
+    encoder runs int8 where ``qenc`` is given."""
 
     def __init__(self, guidance, model, sched: DiffusionSchedule, idx: Sequence[int], *,
                  temperature: float, mc_trials: int, tau: Optional[Sequence[int]], eta: float,
-                 noise_prior: bool, use_int8_eps: bool, use_int8_encode: bool, use_int8_pallas: bool,
+                 noise_prior: bool, use_int8_eps: bool, use_int8_pallas: bool,
                  pallas_fuse_ends: bool, qmember=None, qenc=None, qheads=None):
         super().__init__()
         self.guidance, self.model = guidance, model
         self.idx, self.tau = tuple(idx), tau
         self.temperature, self.mc_trials, self.eta, self.noise_prior = temperature, mc_trials, eta, noise_prior
-        self.use_int8_eps, self.use_int8_encode = use_int8_eps, use_int8_encode
+        self.use_int8_eps, self.use_int8_encode = use_int8_eps, qenc is not None
         self.use_int8_pallas, self.pallas_fuse_ends = use_int8_pallas, pallas_fuse_ends
         for name, t in zip(DiffusionSchedule._fields, sched):
             self.register_buffer(f"sched_{name}", t)

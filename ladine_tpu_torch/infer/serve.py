@@ -84,14 +84,16 @@ def _head_indices(head_indices, n_stacked: int, n_heads: int) -> tuple:
 
 
 def _int8_forms(guidance, members, idx, num_members: int, use_int8: bool, use_int8_pallas: bool,
-                use_int8_encode: bool):
+                use_int8_encode: bool, arch: str):
     """The resident int8 forms the settings call for, quantized from
     ``guidance`` and ``members`` (the modules, or their tensors by name):
     (member lin2/lin3, enc_lin1, mapping heads' linear1), None where not
-    used. The mapping heads go int8 only when every conditioning head is a
-    mapping head."""
+    used. enc_lin1 goes int8 only for arch ``linear`` (the conv archs keep a
+    float encoder, as the JAX Predictor does): the program's int8 encode
+    runs where this returns it. The mapping heads go int8 only when every
+    conditioning head is a mapping head."""
     qmember = quantize_member(members) if use_int8 or use_int8_pallas else None
-    qenc = quantize_encoder(members) if use_int8_encode else None
+    qenc = quantize_encoder(members) if use_int8_encode and arch == "linear" else None
     int8_heads = use_int8_encode and all(i < num_members for i in idx)
     return qmember, qenc, quantize_mapping_heads(guidance, idx) if int8_heads else None
 
@@ -143,13 +145,13 @@ class Predictor:
         # in place).
         forms = self._int8 if self._int8 is not None else _int8_forms(
             self.guidance, self.model, self._idx, self.guidance.num_members,
-            self.use_int8, self.use_int8_pallas, self.use_int8_encode)
+            self.use_int8, self.use_int8_pallas, self.use_int8_encode, self.model.arch)
         self._int8 = None
         self._qmember, self._qenc, self._qheads = forms
         self._program = ServingProgram(
             self.guidance, self.model, self.sched, self._idx, temperature=self.temperature,
             mc_trials=self.mc_trials, tau=self._tau, eta=self.ddim_eta, noise_prior=self.noise_prior,
-            use_int8_eps=self.use_int8 and not self.use_int8_pallas, use_int8_encode=self.use_int8_encode,
+            use_int8_eps=self.use_int8 and not self.use_int8_pallas,
             use_int8_pallas=self.use_int8_pallas, pallas_fuse_ends=self.pallas_fuse_ends,
             qmember=self._qmember, qenc=self._qenc, qheads=self._qheads,
         )
@@ -228,6 +230,8 @@ class Predictor:
             "img_size": int(s),
             "seed": int(self.seed),
             "settings": {
+                "arch": self.model.arch,
+                "guidance": self.model.guidance,
                 "temperature": self.temperature,
                 "mc_trials": self.mc_trials,
                 "ddim_steps": self.ddim_steps,
@@ -282,8 +286,8 @@ class Predictor:
                 "hidden_dim": m.hidden_dim,
                 "y_dim": m.y_dim,
                 "n_steps": m.n_steps,
-                "arch": "linear",
-                "guidance": True,
+                "arch": m.arch,
+                "guidance": m.guidance,
             },
         }
         tree = {"guidance": g.state_dict(), "members": m.state_dict(), "schedule": self.sched._asdict()}
@@ -324,12 +328,11 @@ class Predictor:
             device="meta", dtype=g_dtype,
         )
         m = meta["model"]
-        if m.get("arch", "linear") != "linear" or not m.get("guidance", True):
-            raise NotImplementedError(f"the port serves arch 'linear' with guidance; {path} has {m}")
         model = ConditionalModel(
-            tree["members"]["enc_lin1.weight"].shape[0], data_dim=m["data_dim"],
+            tree["members"]["lin4.weight"].shape[0], data_dim=m["data_dim"],
             feature_dim=m["feature_dim"], hidden_dim=m["hidden_dim"], y_dim=m["y_dim"],
-            n_steps=m["n_steps"], device="meta", dtype=m_dtype,
+            n_steps=m["n_steps"], guidance=m.get("guidance", True), device="meta", dtype=m_dtype,
+            arch=m.get("arch", "linear"),
         )
         sched = DiffusionSchedule(**tree["schedule"])
         if ("ddim_eta" not in meta and "ddim_eta" not in overrides
@@ -359,7 +362,7 @@ class Predictor:
         # float32 parameters)
         idx = _head_indices(kwargs["head_indices"], model.members, guidance.num_members + 1)
         forms = _int8_forms(tree["guidance"], tree["members"], idx, guidance.num_members,
-                            kwargs["use_int8"], kwargs["use_int8_pallas"], kwargs["use_int8_encode"])
+                            kwargs["use_int8"], kwargs["use_int8_pallas"], kwargs["use_int8_encode"], model.arch)
         _assign(guidance, tree.pop("guidance"))
         _assign(model, tree.pop("members"))
         return cls(guidance=guidance, model=model, sched=sched, device=dev, _int8=forms, **kwargs)

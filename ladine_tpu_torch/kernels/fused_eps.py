@@ -46,14 +46,16 @@ def fold_table(model, t) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
 def fused_eps(model, f: torch.Tensor, y: torch.Tensor, t: int, y_hat: torch.Tensor,
               table=None) -> torch.Tensor:
     """(M, R, F) features + (M, R, C) y_t + int t + (M, R, C) guidance ->
-    (M, R, C) eps, for a stacked ``models.conditional.ConditionalModel``.
-    ``table``: :func:`fold_table` over all timesteps, or None to fold for t."""
+    (M, R, C) eps, for a stacked ``models.conditional.ConditionalModel``;
+    a model without guidance takes y_t alone into lin1 (K = C) and ignores
+    y_hat. ``table``: :func:`fold_table` over all timesteps, or None to fold
+    for t."""
     if table is None:
         (a1, c1), (a2, c2), (a3, c3) = fold_table(model, t)
     else:
         (a1, c1), (a2, c2), (a3, c3) = ((a[t], c[t]) for a, c in table)
     w1 = model.lin1.linear.weight
-    y_in = torch.cat([y, y_hat], dim=-1).to(w1.dtype)
+    y_in = model.lin1_input(y, y_hat).to(w1.dtype)
     h = fused_linear_act(y_in, w1, a1, c1, mult=f)
     h = fused_linear_act(h, model.lin2.linear.weight, a2, c2)
     h = fused_linear_act(h, model.lin3.linear.weight, a3, c3)

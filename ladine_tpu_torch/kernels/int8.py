@@ -147,7 +147,7 @@ def quantize_member(model) -> Int8Layers:
 def _lin1(model, f, y, y_hat, a1, c1) -> torch.Tensor:
     """lin1 of the int8 eps: ``f * softplus((y_in @ w1) * a1 + c1)``, the
     softplus rounded to f's dtype before the gate, as the JAX package."""
-    y_in = torch.cat([y, y_hat], dim=-1).float()
+    y_in = model.lin1_input(y, y_hat).float()
     z = torch.matmul(y_in, model.lin1.linear.weight.float())
     h = softplus(z * a1.unsqueeze(-2) + c1.unsqueeze(-2)).to(f.dtype)
     return f * h

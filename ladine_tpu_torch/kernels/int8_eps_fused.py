@@ -259,7 +259,7 @@ def int8_eps_pallas_fused(model, q: Int8Layers, f: torch.Tensor, y: torch.Tensor
     operands are."""
     (a1, c1), (a2, c2), (a3, c3) = _folded(model, t, table)
     cdtype = f.dtype
-    y_in = torch.cat([y, y_hat], dim=-1).to(cdtype)
+    y_in = model.lin1_input(y, y_hat).to(cdtype)
     w_q2, w_scale2, _ = q["lin2"]
     h2, hmax2 = int8_eps_l12(f, y_in, model.lin1.linear.weight.to(cdtype), a1, c1,
                              w_q2, w_scale2 * a2, c2)

@@ -1,10 +1,18 @@
 """The epsilon_theta noise-estimator network, members stacked.
 
-Counterpart of ``ladine_tpu/models/conditional.py::ConditionalModel`` for
-the ``linear`` encoder arch. The JAX package stacks the members' variable
-trees and vmaps; here every parameter carries a leading member axis M, so
-the encoder is a batched ``torch.matmul`` and ``eps`` is one kernel launch
-per layer for all members (``kernels/fused_eps.py``).
+Counterpart of ``ladine_tpu/models/conditional.py::ConditionalModel``. The
+JAX package stacks the members' variable trees and vmaps; here every
+parameter carries a leading member axis M, so the ``linear`` encoder is a
+batched ``torch.matmul`` and ``eps`` is one kernel launch per layer for all
+members (``kernels/fused_eps.py``). The conv archs (``simple``, ``lenet``,
+``lenet5``, ``fashioncnn``, ``resnet18``, ``resnet50``;
+``models/encoders.py``) keep their encoder's tensors stacked the same way
+(:class:`StackedModule`) and run it once per member; ``encode`` runs once
+per image, off the reverse chain, so eps is the same for every arch.
+
+``guidance=False`` (the reference's ``--no_cat_f_phi``) conditions lin1 on
+y_t alone: lin1 is ``y_dim -> feature_dim`` and a y_hat given to ``eps`` is
+ignored, as in the JAX module.
 
 Train mode (``forward(..., train=True)``) is plain PyTorch, as flax's is
 XLA's: per-row timestep gates, and BatchNorm on the batch's own statistics
@@ -25,7 +33,8 @@ casts its input to the weight dtype, as a flax ``Dense(dtype=...)`` does.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 
 from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.kernels.fused_eps import fused_eps
+from ladine_tpu_torch.models.encoders import ARCHS, image_shape_of, make_encoder, pop_batch_stats
 
 _BN_EPS = 1e-5  # torch BatchNorm1d default
 # flax's momentum weights the OLD running value (torch's momentum 0.1 the new)
@@ -78,16 +88,16 @@ class StackedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias
         mul = torch.rsqrt(self.running_var + _BN_EPS) * self.weight
-        y = (x.float() - self.running_mean.unsqueeze(-2)) * mul.unsqueeze(-2)
+        y = (x.to(mul.dtype) - self.running_mean.unsqueeze(-2)) * mul.unsqueeze(-2)
         return y + self.bias.unsqueeze(-2)
 
     def train_forward(self, x: torch.Tensor):
         """Train mode with flax's semantics: each member's statistics over the
-        batch axis of (M, B, N), in float32, by the fast variance
+        batch axis of (M, B, N), in float32 (or float64 where the layer is), by the fast variance
         ``E[x^2] - E[x]^2`` clipped at 0 (biased), both to normalize and for
         the running update ``0.9 * running + 0.1 * batch``. Returns the
         float32 output and the new (running_mean, running_var), detached."""
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         mean = xf.mean(dim=1, keepdim=True)
         var = torch.clamp_min((xf * xf).mean(dim=1, keepdim=True) - mean * mean, 0.0)
         y = (xf - mean) * (torch.rsqrt(var + _BN_EPS) * self.weight.unsqueeze(-2))
@@ -129,11 +139,68 @@ class ConditionalLinear(nn.Module):
         self.embed.uniform_(0.0, 1.0, generator=generator)  # reference init U[0, 1)
 
 
-class ConditionalModel(nn.Module):
-    """epsilon_theta(x, y_t, t, y_hat) for M stacked members, arch 'linear'.
+class StackedModule(nn.Module):
+    """M copies of one module with their tensors stacked on a leading member
+    axis, under the module's own state-dict names. ``forward`` runs member
+    m on the m-th slice of every tensor (``torch.func.functional_call`` on a
+    template without storage) and stacks the outputs on a leading axis; in
+    train mode it also returns each BatchNorm's new running statistics
+    (``models.encoders.pop_batch_stats``), stacked."""
 
-    ``encode`` maps flat images (B, data_dim) to features (M, B, feature_dim)
-    once per image; ``eps`` is the per-step y-branch on (M, R, .) rows."""
+    def __init__(self, make: Callable[..., nn.Module], members: int, device=None):
+        super().__init__()
+        self.members = members
+        object.__setattr__(self, "_make", make)
+        object.__setattr__(self, "template", make(device="meta"))
+        for name, child in make(device="meta").named_children():
+            self.add_module(name, child)
+        for mod in self.modules():
+            for store in (mod._parameters, mod._buffers):
+                for name, t in list(store.items()):
+                    if t is not None and mod is not self:
+                        stacked = torch.empty((members,) + tuple(t.shape), dtype=t.dtype, device=device)
+                        store[name] = nn.Parameter(stacked, requires_grad=False) \
+                            if isinstance(t, nn.Parameter) else stacked
+        self.names = tuple(self.template.state_dict())
+
+    def _tensor(self, name: str) -> torch.Tensor:
+        # attribute lookup, so that functional_call's swapped tensors are seen
+        return functools.reduce(getattr, name.split("."), self)
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        tensors = {k: self._tensor(k) for k in self.names}
+        outs, stats = [], []
+        for m in range(self.members):
+            outs.append(torch.func.functional_call(self.template, {k: v[m] for k, v in tensors.items()},
+                                                   (x,), {"train": train}))
+            if train:
+                stats.append(pop_batch_stats(self.template))
+        out = torch.stack(outs)
+        if not train:
+            return out
+        return out, {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Each member initialized as a fresh module of its own
+        (``models/initializers.py``), one after the other from ``generator``."""
+        from ladine_tpu_torch.models.initializers import init_random_
+
+        for m in range(self.members):
+            one = init_random_(self._make(device=self._tensor(self.names[0]).device), generator).state_dict()
+            for k in self.names:
+                self._tensor(k)[m].copy_(one[k])
+
+
+class ConditionalModel(nn.Module):
+    """epsilon_theta(x, y_t, t, y_hat) for M stacked members.
+
+    ``encode`` maps images to features (M, B, feature_dim) once per image
+    (``linear`` and ``simple``: flat (B, data_dim); the other archs: NHWC
+    (B, H, W, C), the square image of ``data_dim`` values that
+    ``models.encoders.image_shape_of`` gives); ``eps`` is the per-step
+    y-branch on (M, R, .) rows. The conv encoders compute in float32 whatever ``dtype`` is, as
+    the JAX ones (built without a dtype) do."""
 
     def __init__(
         self,
@@ -146,43 +213,76 @@ class ConditionalModel(nn.Module):
         guidance: bool = True,
         device="cuda",
         dtype: Optional[torch.dtype] = None,
+        arch: str = "linear",
     ):
         super().__init__()
-        if not guidance:
-            raise NotImplementedError("the port's eps takes the guidance y_hat (guidance=True)")
+        if arch not in ARCHS:
+            raise ValueError(f"unknown encoder arch {arch!r}")
         dev = resolve_device(device)
         self.members, self.data_dim, self.y_dim = members, data_dim, y_dim
         self.feature_dim, self.hidden_dim, self.n_steps = feature_dim, hidden_dim, n_steps
+        self.guidance, self.arch = guidance, arch
         lin = lambda i, o: StackedLinear(members, i, o, dev, dtype)  # noqa: E731
         bn = lambda n: StackedBatchNorm(members, n, dev)  # noqa: E731
         cl = lambda i, o: ConditionalLinear(members, i, o, n_steps, dev, dtype)  # noqa: E731
-        self.enc_lin1, self.enc_bn1 = lin(data_dim, hidden_dim), bn(hidden_dim)
-        self.enc_lin2, self.enc_bn2 = lin(hidden_dim, hidden_dim), bn(hidden_dim)
-        self.enc_lin3, self.norm = lin(hidden_dim, feature_dim), bn(feature_dim)
-        self.lin1, self.unetnorm1 = cl(2 * y_dim, feature_dim), bn(feature_dim)
+        if arch == "linear":
+            self.image_shape = None
+            self.enc_lin1, self.enc_bn1 = lin(data_dim, hidden_dim), bn(hidden_dim)
+            self.enc_lin2, self.enc_bn2 = lin(hidden_dim, hidden_dim), bn(hidden_dim)
+            self.enc_lin3 = lin(hidden_dim, feature_dim)
+        else:
+            self.image_shape = image_shape_of(data_dim)
+            self.encoder_x = StackedModule(functools.partial(make_encoder, arch, feature_dim, self.image_shape,
+                                                             dtype=torch.float32), members, dev)
+        self.norm = bn(feature_dim)
+        self.lin1, self.unetnorm1 = cl((2 if guidance else 1) * y_dim, feature_dim), bn(feature_dim)
         self.lin2, self.unetnorm2 = cl(feature_dim, feature_dim), bn(feature_dim)
         self.lin3, self.unetnorm3 = cl(feature_dim, feature_dim), bn(feature_dim)
         self.lin4 = lin(feature_dim, y_dim)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, data_dim) flat images -> (M, B, feature_dim) float32 features.
+    def like(self, members: int, device, dtype: Optional[torch.dtype]) -> "ConditionalModel":
+        """A new model of this one's geometry, arch and guidance."""
+        return ConditionalModel(members, self.data_dim, self.feature_dim, self.hidden_dim, self.y_dim,
+                                self.n_steps, self.guidance, device, dtype, self.arch)
 
-        Images are flattened channel-last (NHWC ``reshape(B, -1)``), as the
-        JAX package flattens them."""
+    def _images(self, x: torch.Tensor) -> torch.Tensor:
+        if self.arch != "simple" and x.dim() != 4:
+            raise ValueError(
+                f"ConditionalModel(arch={self.arch!r}) encodes NHWC images (B, H, W, C), got shape "
+                f"{tuple(x.shape)}. The Predictor flattens its images, as the JAX Predictor does, so it "
+                "serves the archs 'linear' and 'simple' only")
+        return x
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Images -> (M, B, feature_dim) float32 features. ``linear`` takes
+        flat images (B, data_dim), flattened channel-last (NHWC
+        ``reshape(B, -1)``) as the JAX package flattens them."""
+        if self.arch != "linear":
+            return self.norm(self.encoder_x(self._images(x)))
         h = F.softplus(self.enc_bn1(self.enc_lin1(x)))
         h = F.softplus(self.enc_bn2(self.enc_lin2(h)))
         return self.norm(self.enc_lin3(h))
 
-    def eps(self, f: torch.Tensor, y: torch.Tensor, t: int, y_hat: torch.Tensor,
+    def eps(self, f: torch.Tensor, y: torch.Tensor, t: int, y_hat: Optional[torch.Tensor] = None,
             table=None) -> torch.Tensor:
         """features (M, R, F), y_t (M, R, C), int t, guidance (M, R, C) ->
         eps (M, R, C) in the compute dtype. ``table``: the folded gates of
-        every timestep (``kernels.fused_eps.fold_table``), or None."""
+        every timestep (``kernels.fused_eps.fold_table``), or None.
+        Without guidance ``y_hat`` is ignored."""
         return fused_eps(self, f, y, t, y_hat, table)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, t, y_hat: torch.Tensor, train: bool = False):
-        """epsilon_theta(x, y_t, t, y_hat): flat images (B, data_dim), y_t and
-        y_hat (M, B, C).
+    def lin1_input(self, y: torch.Tensor, y_hat: Optional[torch.Tensor]) -> torch.Tensor:
+        """lin1's input: [y_t, y_hat] with guidance, y_t alone without."""
+        if not self.guidance:
+            return y
+        if y_hat is None:
+            raise ValueError("guidance=True requires y_hat")
+        return torch.cat([y, y_hat], dim=-1)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, t, y_hat: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """epsilon_theta(x, y_t, t, y_hat): images as :meth:`encode` takes
+        them, y_t and y_hat (M, B, C).
 
         Eval (int t): ``eps(encode(x), ...)``, the kernels' path. Train (t of
         shape (M, B), one timestep a row): plain PyTorch on the batch's
@@ -197,10 +297,15 @@ class ConditionalModel(nn.Module):
                 getattr(self, name).train_forward(h)
             return out
 
-        h = F.softplus(bn("enc_bn1", self.enc_lin1(x)))
-        h = F.softplus(bn("enc_bn2", self.enc_lin2(h)))
-        f = bn("norm", self.enc_lin3(h))
-        h = F.softplus(bn("unetnorm1", self.lin1(torch.cat([y, y_hat], dim=-1), t)))
+        if self.arch == "linear":
+            h = F.softplus(bn("enc_bn1", self.enc_lin1(x)))
+            h = F.softplus(bn("enc_bn2", self.enc_lin2(h)))
+            f = bn("norm", self.enc_lin3(h))
+        else:
+            h, enc_stats = self.encoder_x(self._images(x), train=True)
+            stats.update({f"encoder_x.{k}": v for k, v in enc_stats.items()})
+            f = bn("norm", h)
+        h = F.softplus(bn("unetnorm1", self.lin1(self.lin1_input(y, y_hat), t)))
         h = F.softplus(bn("unetnorm2", self.lin2(f * h, t)))
         h = F.softplus(bn("unetnorm3", self.lin3(h, t)))
         return self.lin4(h), stats

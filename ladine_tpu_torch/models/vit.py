@@ -116,8 +116,10 @@ class ViT(nn.Module):
                 taps.append(h)
         return taps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Full classification forward: (B, H, W, 3) -> (B, num_classes)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Full classification forward: (B, H, W, 3) -> (B, num_classes).
+        ``train`` is taken for the trainers' one signature and ignored (no
+        layer depends on it), as in the JAX ViT."""
         return self._classify(self.patch_embed(x))
 
     def tap_features(self, x: torch.Tensor, depths: Sequence[int]) -> List[torch.Tensor]:

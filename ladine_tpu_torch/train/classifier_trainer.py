@@ -2,8 +2,12 @@
 
 Counterpart of ``ladine_tpu/train/classifier_trainer.py``:
 
-* the ViT fine-tune (the reference: timm ViT-B/16 with a fresh class head,
-  AdamW lr 1e-4 wd 0.1, StepLR(10, 0.5), cross-entropy);
+* the stage-1 fine-tune (the reference: timm ViT-B/16 with a fresh class
+  head, AdamW lr 1e-4 wd 0.1, StepLR(10, 0.5), cross-entropy), of the ViT
+  or any backbone of ``models/backbones.py`` and ``models/encoders.py``
+  (``ResNet``); a BatchNorm backbone carries its running statistics in
+  ``TrainState.batch_stats``, updated by every train step as flax's
+  ``mutable=["batch_stats"]`` updates them;
 * the mapping MLPs: MLP k on the frozen ViT's bare-patch tap after block
   k+1 (Adam, StepLR(20, 0.5), cross-entropy). One tapped ViT forward feeds
   all K MLPs, whose parameters are stacked on a leading axis and run as one
@@ -24,8 +28,10 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn as nn
 
 from ladine_tpu_torch.device import resolve_device
+from ladine_tpu_torch.models.encoders import pop_batch_stats
 from ladine_tpu_torch.models.initializers import init_random_
 from ladine_tpu_torch.models.mlp import MappingMLP, stacked_forward
 from ladine_tpu_torch.models.vit import ViT
@@ -37,11 +43,13 @@ from ladine_tpu_torch.train.optim import Optimizer, Tensors
 class TrainState:
     """Float32 master ``params``, the optimizer state and the update count
     (stacked members: a leading axis on every tensor and one count
-    each)."""
+    each); ``batch_stats``, a BatchNorm backbone's running statistics by
+    state-dict name (None without BatchNorm)."""
 
     params: Tensors
     opt_state: dict
     step: torch.Tensor
+    batch_stats: Optional[Tensors] = None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -58,45 +66,45 @@ def _accuracy(logits, labels):
 # ---------------------------------------------------------------- ViT stage
 
 
-def create_vit_state(vit: ViT, generator: torch.Generator, tx: Optimizer, device="cuda") -> TrainState:
-    """A fresh float32 ViT of ``vit``'s geometry (torch's default Linear and
-    conv init, identity LayerNorms, N(0, 0.02) position embedding), and its
-    optimizer state. The JAX package also takes ResNet backbones with
-    BatchNorm here; the port's wait for ``models/backbones.py``."""
-    if not isinstance(vit, ViT):
-        raise NotImplementedError(
-            f"create_vit_state takes the port's ViT; {type(vit).__name__} backbones wait for "
-            "models/backbones.py (ROADMAP.md slice E, item 15)")
+def create_vit_state(vit: nn.Module, generator: torch.Generator, tx: Optimizer, device="cuda") -> TrainState:
+    """A fresh float32 backbone of ``vit``'s geometry, initialized as its
+    JAX family is (``models/initializers.py``), and its optimizer state;
+    a BatchNorm backbone's running statistics start at (0, 1)."""
     dev = resolve_device(device)
     fresh = copy.deepcopy(vit).to_empty(device=dev).float()
     init_random_(fresh, generator)
     params = {k: v.detach() for k, v in fresh.named_parameters()}
-    return TrainState(params=params, opt_state=tx.init(params), step=torch.zeros((), dtype=torch.int32, device=dev))
+    stats = {k: v.detach() for k, v in fresh.named_buffers()} or None
+    return TrainState(params=params, opt_state=tx.init(params),
+                      step=torch.zeros((), dtype=torch.int32, device=dev), batch_stats=stats)
 
 
-def make_vit_train_step(vit: ViT, tx: Optimizer) -> Callable:
+def make_vit_train_step(vit: nn.Module, tx: Optimizer) -> Callable:
     """step(state, images NHWC, labels) -> (state, loss, accuracy), with
-    ``vit`` the compute module."""
+    ``vit`` the compute module (any backbone), run in train mode."""
 
     def step(state: TrainState, images, labels):
         def loss_fn(params):
-            logits = Fn.call(vit, params, images)
-            return cross_entropy(logits, labels), logits.detach()
+            logits = Fn.call(vit, params, images, buffers=state.batch_stats, train=True)
+            return cross_entropy(logits, labels), (logits.detach(), pop_batch_stats(vit))
 
-        loss, logits, grads = Fn.value_and_grad(loss_fn, state.params)
+        loss, (logits, stats), grads = Fn.value_and_grad(loss_fn, state.params)
         tx.step(state.params, grads, state.opt_state)
         state.step.add_(1)
+        if state.batch_stats is not None:
+            state.batch_stats = stats
         return state, loss, _accuracy(logits, labels).mean()
 
     return step
 
 
-def make_vit_eval_step(vit: ViT) -> Callable:
-    """step(params, images, labels) -> number of correct predictions."""
+def make_vit_eval_step(vit: nn.Module) -> Callable:
+    """step(params, images, labels, batch_stats=None) -> number of correct
+    predictions (eval mode: running statistics)."""
 
     @torch.no_grad()
-    def step(params, images, labels):
-        return _accuracy(Fn.call(vit, params, images), labels).sum()
+    def step(params, images, labels, batch_stats=None):
+        return _accuracy(Fn.call(vit, params, images, buffers=batch_stats), labels).sum()
 
     return step
 

@@ -70,10 +70,9 @@ def create_member_states(
     a time. ``lowmem``: the bfloat16 EMA accumulator (pair it with
     ``make_optimizer(..., lowmem=True)``)."""
     dev = resolve_device(device)
-    geometry = (model.data_dim, model.feature_dim, model.hidden_dim, model.y_dim, model.n_steps)
 
     def one(g):
-        return init_random_(ConditionalModel(1, *geometry, device=dev, dtype=torch.float32), g)
+        return init_random_(model.like(1, dev, torch.float32), g)
 
     tensors = Fn.stack_init(one, Fn.member_seeds(generator, num_members), dev)
     stats = {k: v for k, v in tensors.items() if k.endswith(("running_mean", "running_var"))}
@@ -263,11 +262,16 @@ def conditional_model_from_state(
     """The hand-off from training to serving: a ``ConditionalModel`` of
     ``dtype`` (the layout ``Predictor`` takes) holding the state's debiased
     EMA (``use_ema``) or raw parameters, with its running statistics. The
-    EMA is debiased a member at a time, straight into the module."""
+    EMA is debiased a member at a time, straight into the module. The
+    geometry is read off the state: arch ``linear`` (a conv arch's
+    parameters do not hold the image size), guidance from lin1's width."""
     p = state.params
+    if "enc_lin1.weight" not in p:
+        raise ValueError("conditional_model_from_state reads the geometry of arch 'linear' states only")
     m, data_dim, hidden = p["enc_lin1.weight"].shape
-    model = ConditionalModel(m, data_dim, p["enc_lin3.weight"].shape[2], hidden, p["lin4.weight"].shape[2],
-                             p["lin1.embed"].shape[1], device=device, dtype=dtype)
+    y_dim = p["lin4.weight"].shape[2]
+    model = ConditionalModel(m, data_dim, p["enc_lin3.weight"].shape[2], hidden, y_dim, p["lin1.embed"].shape[1],
+                             guidance=p["lin1.linear.weight"].shape[1] == 2 * y_dim, device=device, dtype=dtype)
     target = model.state_dict()
     scale = debias_scale(ema_rate, state.step).tolist()
     for k, v in target.items():

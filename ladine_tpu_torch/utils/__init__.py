@@ -19,6 +19,8 @@ from ladine_tpu_torch.utils.convert import (
     members_from_flax,
     mlp_from_flax,
     members_to_flax,
+    module_from_flax,
+    module_to_flax,
     train_state_from_jax,
     vit_from_flax,
 )
@@ -27,7 +29,8 @@ from ladine_tpu_torch.utils.logging import ScalarLogger, device_memory_stats, se
 __all__ = [
     "ScalarLogger", "assemble_guidance", "best_checkpoint_name", "device_memory_stats", "export_guidance_stage1",
     "guidance_from_flax", "guidance_to_flax", "load_checkpoint", "load_checkpoint_meta", "load_train_state",
-    "member_state_from_jax", "members_from_flax", "members_to_flax", "mlp_from_flax", "save_checkpoint",
+    "member_state_from_jax", "members_from_flax", "members_to_flax", "mlp_from_flax", "module_from_flax",
+    "module_to_flax", "save_checkpoint",
     "save_train_state", "setup_logging", "split_guidance", "train_state_from_jax", "trace",
     "validate_guidance_tree", "vit_from_flax",
 ]

@@ -13,7 +13,8 @@
   ``--sweep`` on that checkpoint.
 * Without CUDA each entry point that runs a model exits non-zero with a
   message unless it is given ``--device cpu``; ``--make_plots`` without
-  matplotlib and a backbone that is not ported exit with a message.
+  matplotlib, and a non-ViT stage-1 checkpoint given to the mapping stage,
+  exit with a message.
 """
 
 import json
@@ -178,8 +179,15 @@ def test_no_card_exits_with_a_message_unless_device_cpu(fn, argv, monkeypatch, c
 
 
 def test_refusals_with_messages(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="item 15"):
-        train_transformer.main(["--demo", "--device", "cpu", "--model_arch", "resnet18", "--out", str(tmp_path)])
+    # every backbone trains in stage 1 (tests/test_torch_backbones_cli.py); the mapping stage takes the ViT only
+    from ladine_tpu_torch.models.encoders import ResNet
+    from ladine_tpu_torch.utils import save_checkpoint
+
+    save_checkpoint(str(tmp_path / "resnet18_ChestXRay"), {"params": ResNet(2, "resnet18").state_dict()},
+                    {"kind": "vit"})
+    with pytest.raises(SystemExit, match="taps the ViT only"):
+        train_mapping.main(["--demo", "--device", "cpu", "--epochs", "1", "--out", str(tmp_path),
+                            "--vit_ckpt", str(tmp_path / "resnet18_ChestXRay")])
     monkeypatch.setitem(sys.modules, "matplotlib", None)  # as on a machine without it
     with pytest.raises(SystemExit, match="needs matplotlib"):
         main_cli.main(["--demo", "--test", "--device", "cpu", "--make_plots", "--exp", str(tmp_path)])

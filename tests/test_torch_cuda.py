@@ -588,3 +588,85 @@ def test_graphed_eval_batch_equals_the_eager_one(cuda, name):
             else:
                 assert torch.equal(graphed, eager)
         assert graphed.shape == (2, 4, b, 2) and torch.isfinite(graphed).all()
+
+
+# ------------------------------------------------ guidance-free eps, backbones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 160, 4096), (2, 9, 17)], ids=["path", "ragged-N"])
+def test_fused_linear_act_small_k_at_k_2_takes_a_float32_gate(cuda, shape):
+    """lin1 of a guidance-free member (``--no_cat_f_phi``): y_t alone, K = 2,
+    bf16 rows of 4 bytes, the float32 features as the gate."""
+    m, r, n = shape
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(15), m, r, 2, n))
+    x, w = x.bfloat16(), w.bfloat16()
+    launch_counts.clear()
+    out = fused_linear_act(x, w, a, c, mult)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
+    _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_eps_l12_at_ci_2_matches_plain(cuda, dtype):
+    """K5a of a guidance-free member: the lin1 pass over Ci = 2, then lin2,
+    at the path's shape; the lin1 codes equal the plain version's."""
+    m, r, k = 5, 160, 4096
+    rng = np.random.default_rng(16)
+    f, _, w_q2, s2, c2, _, _, _ = int8_layer_inputs(rng, m, r, k, k, cuda, dtype, False)
+    y_in = torch.from_numpy(rng.standard_normal((m, r, 2)).astype(np.float32)).to(cuda, dtype)
+    w1 = torch.from_numpy(rng.standard_normal((m, 2, k)).astype(np.float32) * 0.5).to(cuda, dtype)
+    a1, c1 = (torch.from_numpy(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32)).to(cuda) for _ in range(2))
+    codes, xmax = int8_lin1(f, y_in, w1, a1, c1)
+    want_codes, want_max = int8_lin1_plain(f, y_in, w1, a1, c1)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, want_codes) and torch.equal(xmax, want_max)
+    launch_counts.clear()
+    h2, hmax2 = int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l12"] == 1
+    ref_h2, ref_m2 = int8_eps_l12_plain(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    _close(h2, ref_h2, tol)
+    _close(hmax2, ref_m2, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(30, 198, 12, 64), (30, 197, 16, 48)], ids=["deit-distilled", "convit-base"])
+def test_flash_attention_fp32_forward_and_vjp_at_the_backbones_shapes(cuda, shape):
+    """The stage-1 backbones train in float32: DeiT-distilled's 198 tokens
+    (cls and distillation tokens) and ConViT-base's MHSA tail of 16 heads of
+    D = 48, at batch 30; forward and gradient to 1e-4."""
+    b, n, h, d = shape
+    qkv, _ = qkv_views(np.random.default_rng(32), b, n, h, d)
+    qkv = qkv.to(cuda).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    d_out = torch.randn(b, n, h, d, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    assert launch_counts["flash_attention"] == 1
+    _close(out, flash_attention_plain(q, k, v), 1e-4)
+    (got,) = torch.autograd.grad(out, qkv, d_out)
+    (want,) = torch.autograd.grad(flash_attention_plain(q, k, v), qkv, d_out)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_capture_after_a_dropped_predictor_in_a_reference_cycle(cuda):
+    """A predictor whose CUDA graph is garbage only to the cycle collector
+    (dropped while in a reference cycle) is collected before the next
+    capture, not inside it: freeing a graph's memory voids a capture."""
+    import gc
+
+    images = np.random.default_rng(3).random((3, 32, 32, 3)).astype(np.float32)
+    for _ in range(3):
+        old = _small_predictor(cuda, **PROGRAMS["serving-k5"])
+        old.predict(images)  # captured
+        old.cycle = old  # reachable only through itself once dropped
+        del old
+        gc.collect(0)  # only the youngest generation: the cycle may survive to the capture below
+        new = _small_predictor(cuda, **PROGRAMS["serving-k5"])
+        out = new.predict(images)
+        assert np.isfinite(out["probs"]).all()

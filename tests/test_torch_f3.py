@@ -68,7 +68,7 @@ def test_bf16_load_quantizes_the_fp32_tensors(artifact, preset):
                 p._qenc[0][i], enc["params"]["enc_lin1"]["Dense_0"]["kernel"])
             differ[f"member {i} enc_lin1 scale"] = _differ(p._qenc[1][i], enc["int8_enc"]["scale"])
     if preset == "fast":
-        gvars = guidance_to_flax(guidance, G["vit_depth"], G["num_members"])
+        gvars = guidance_to_flax(guidance)
         want = jint8.quantize_mapping_heads(gvars, range(M))
         for i in range(M):
             differ[f"head {i} codes"] = _differ(p._qheads[i][0],

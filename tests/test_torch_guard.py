@@ -135,3 +135,19 @@ def test_predictor_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(**parts)
     assert Predictor(**parts, device="cpu").device.type == "cpu"
+
+
+def test_a_cuda_device_turns_tf32_off(monkeypatch):
+    """Resolving a card turns off the TF32 that torch lets cuDNN's
+    convolutions use by default, so the conv backbones and encoders compute
+    in float32 as documented (the flags are set, no card is touched)."""
+    from ladine_tpu_torch.device import cli_device, resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for resolve in (resolve_device, cli_device):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        assert resolve("cuda").type == "cuda"
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu").type == "cpu" and torch.backends.cudnn.allow_tf32

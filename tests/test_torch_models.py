@@ -139,8 +139,25 @@ def test_encode_and_eps_match_with_channel_last_flatten(member_pair):
 
 
 def test_conditional_model_rejects_guidance_free_eps():
-    with pytest.raises(NotImplementedError, match="guidance"):
-        ConditionalModel(2, 48, 8, 8, 2, 21, guidance=False, device="cpu")
+    """Once a refusal of ``guidance=False`` (the reference's
+    ``--no_cat_f_phi``), now its parity: lin1 takes y_t alone, eps matches
+    the JAX module's (which is given no y_hat) and ignores a y_hat it is
+    given; what is still rejected is a guided eps without y_hat, as in
+    JAX. Every eps path: ``tests/test_torch_f5.py``."""
+    jm = JaxConditionalModel(data_dim=48, feature_dim=8, hidden_dim=8, y_dim=2, n_steps=21, guidance=False)
+    stacked = jax_members(jm, 2, 48)
+    model = ConditionalModel(2, 48, 8, 8, 2, 21, guidance=False, device="cpu")
+    model.load_state_dict(members_from_flax(stacked))
+    rng = np.random.default_rng(4)
+    f, y = rng.standard_normal((2, 3, 8)).astype(np.float32), rng.standard_normal((2, 3, 2)).astype(np.float32)
+    eps = model.eps(j2t(f), j2t(y), 5, j2t(np.ones((2, 3, 2), np.float32)))
+    for i in range(2):
+        v = jax.tree.map(lambda a: jnp.asarray(a[i]), stacked)
+        _close(eps[i], jm.apply(v, jnp.asarray(f[i]), jnp.asarray(y[i]), jnp.asarray(5), None, method="eps"),
+               rtol=1e-5, atol=1e-6)
+    guided = ConditionalModel(2, 48, 8, 8, 2, 21, device="cpu")
+    with pytest.raises(ValueError, match="requires y_hat"):
+        guided.eps(j2t(f), j2t(y), 5)
 
 
 def test_init_random_is_seeded_and_fills_every_tensor():
@@ -163,7 +180,7 @@ def test_init_random_is_seeded_and_fills_every_tensor():
 
 def test_weight_bridge_round_trip(guidance_pair, member_pair):
     _, gvars, g = guidance_pair
-    back = guidance_to_flax(g.state_dict(), depth=3, n_mlps=3)
+    back = guidance_to_flax(g.state_dict())
     jax.tree.map(np.testing.assert_array_equal, back, gvars)
     _, stacked, model = member_pair
     back = members_to_flax(model.state_dict())

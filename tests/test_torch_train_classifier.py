@@ -103,8 +103,14 @@ def test_create_vit_state_inits_a_float32_vit():
     assert all(v.dtype == torch.float32 for v in st.params.values())
     assert st.params.keys() == dict(vit.named_parameters()).keys() and int(st.step) == 0
     assert (st.params["cls_token"] == 0).all() and st.params["pos_embed"].std() < 0.05
-    with pytest.raises(NotImplementedError, match="backbones"):
-        C.create_vit_state(torch.nn.Linear(2, 2), torch.Generator(), make_optimizer(), device="cpu")
+    assert st.batch_stats is None
+    # a BatchNorm backbone carries its running statistics, starting at (0, 1)
+    from ladine_tpu_torch.models.encoders import ResNet
+
+    st = C.create_vit_state(ResNet(2, "resnet18", device="meta"), torch.Generator().manual_seed(0),
+                            make_optimizer(), device="cpu")
+    assert sorted(st.batch_stats) == sorted(k for k, _ in ResNet(2, device="meta").named_buffers())
+    assert all((v == 0).all() if k.endswith("mean") else (v == 1).all() for k, v in st.batch_stats.items())
 
 
 def test_vit_step_runs_k3s_vjp_once_a_block():

@@ -153,13 +153,14 @@ def key_bias_slices(params) -> dict:
             if k.endswith("attn.qkv.bias")}
 
 
-def assert_adam_step(params, mu, mu_old, ref_mu, ref_params, lr, lead=0, zero_grad=None):
+def assert_adam_step(params, mu, mu_old, ref_mu, ref_params, lr, lead=0, zero_grad=None,
+                     grad_rtol=GRAD_RTOL):
     """New parameters and first moments against JAX's after one Adam step
     (b1 = 0.9) from the same state, each leaf in ``lead`` leading stacked
     axes a member at a time:
 
     - the step's gradient, read off the first moments (g = (mu - 0.9
-      mu_old) / 0.1), within GRAD_RTOL of JAX's in norm;
+      mu_old) / 0.1), within ``grad_rtol`` of JAX's in norm;
     - the new parameters to abs 1e-5, except where JAX's gradient is below
       1e-6: at that noise floor Adam's step g/(|g| + eps) turns a rounding
       difference of g into a step difference, so those elements are held
@@ -189,7 +190,7 @@ def assert_adam_step(params, mu, mu_old, ref_mu, ref_params, lr, lead=0, zero_gr
         n = math.prod(g_ref.shape[:lead])
         g_ref, g_port = g_ref.masked_fill(zero, 0.0), g_port.masked_fill(zero, 0.0)
         gaps, norms = (g_port - g_ref).reshape(n, -1).norm(dim=-1), g_ref.reshape(n, -1).norm(dim=-1)
-        assert (gaps <= GRAD_RTOL * norms).all(), (k, gaps, norms)
+        assert (gaps <= grad_rtol * norms).all(), (k, gaps, norms)
     print("elements stepped apart at the gradient's noise floor, outside the exact zeros: "
           + (", ".join(f"{k} {n} of {ref_params[k].numel()}" for k, n in excused.items() if n) or "none"))
     return noisy
@@ -205,3 +206,37 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def to_float64(tree):
+    """A flax variable tree (or any pytree) as numpy, float32 leaves widened
+    to float64: a train-mode BatchNorm chain held in float64 on both sides
+    (JAX under ``jax.enable_x64``, the port's module ``.double()``)."""
+    return jax.tree.map(lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype == np.float32 else np.asarray(a),
+                        tree)
+
+
+def assert_batch_stats_close(got, ref, rtol: float = 1e-4):
+    """New running statistics by state-dict name (``{bn}.running_mean``,
+    ``{bn}.running_var``) against JAX's. A variance to ``rtol`` x its
+    layer's largest; a mean to ``rtol`` x the larger of its layer's largest
+    mean and largest standard deviation (an error d in a mean moves the
+    layer's eval output by d / sigma, and a mean that is zero in exact
+    arithmetic, as after a freshly initialized BatchNorm and a 1x1 conv
+    without bias, holds only rounding)."""
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        want = np.asarray(v, np.float64)
+        scale = np.abs(want).max()
+        if k.endswith("running_mean"):
+            scale = max(scale, float(np.sqrt(np.asarray(ref[k[:-4] + "var"], np.float64).max())))
+        np.testing.assert_allclose(got[k].detach().cpu().double().numpy(), want, rtol=0, atol=rtol * scale,
+                                   err_msg=k)
+
+
+def perturbed(tree, seed=0, scale=0.05):
+    """A flax variable tree as numpy, every leaf moved by scale x N(0, 1): no
+    layout mistake then hides behind a zero, a one or a symmetric tensor."""
+    leaves, treedef = jax.tree.flatten(jax.tree.map(np.asarray, tree))
+    rng = np.random.default_rng(seed)
+    return jax.tree.unflatten(treedef, [v + scale * rng.standard_normal(v.shape).astype(np.float32) for v in leaves])
