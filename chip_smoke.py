@@ -160,6 +160,37 @@ Phases, each fatal on failure (no failure is caught):
    and K5a at Ci = 2, and K3 in float32, forward and VJP, at (30, 198, 12,
    64) and (30, 197, 16, 48) against their plain versions
    (``check_phase10_shapes``).
+11. The mesh (``parallel/``) at full width: two ranks over ``gloo`` that
+   share the one card (``nccl`` refuses two ranks on one device), spawned
+   after phase 10 has freed its modules, each group with a two-minute
+   timeout; weights from phase 4's seeds on each rank. (a) Serving on a
+   (member 1, data 2) mesh at batch 8, each rank 4 images: ``parity``
+   graphed, ``serving`` + ``use_int8_pallas`` and + ``pallas_fuse_ends``,
+   each against the one-process request of the same generator made in this
+   process before the spawn (votes equal; ``probs``, PIW, variance within
+   rtol 1e-4, atol 1e-5), launches exact a rank (K1 3000, K3 5; K4 100; K5a
+   and K5b 50), request ms a rank (two processes sharing one card: not a
+   multi-card time). (c) ``evaluate_ensemble`` on that mesh, one batch of 8
+   at ``fast`` with PGD (each rank attacks 4 images), samples against the
+   one-process samples at (a)'s tolerance, K3 exact. (b) One full train
+   step (heads 0 and 1: K3 2 a step) of two members from one state with
+   injected draws: on (member 2, data 1) in fp32 Adam and EMA, and on
+   (member 1, data 2) with ``fsdp_plan`` and ``lowmem``, each in bf16
+   compute behind phase 4's guidance (every deployment config's dtype) and
+   in float32 behind its float32 copy, each against the one-process step
+   on strided probes of every leaf (``hold_step``). float32: losses rtol
+   1e-5, parameters atol 2.1e-3, first moments 1e-3 of their leaf's
+   largest (bfloat16 moments: or one bfloat16 step; not the biases before
+   a BatchNorm, whose exact gradient is zero). bf16: a rank's GEMMs of
+   other shapes (one member of two, 15 rows of 30) round otherwise, so the
+   rank and the one process are each held against a float64 witness (the
+   one-process step with its members computed in float64 behind the same
+   bf16 guidance): losses within 2^-8 (one bf16 rounding unit) of it, and
+   the rank's first moments no farther from it, leaf by leaf, than twice
+   the one process's (floored at 2^-8 of the leaf's largest); parameters
+   atol 2.1e-3 against one process. ms a step and peak GiB a rank. Then,
+   not counted, K1, K3, K4, K5a and K5b against their plain versions at a
+   rank's shapes (``check_phase11_shapes``).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -1972,6 +2003,433 @@ def print_registers(logs):
                 print(f"    {name}.cu {kernel[:72]}: {line.split(':', 1)[-1].strip()}")
 
 
+# Phase 11: the mesh at full width, two gloo ranks sharing the one card
+MESH_DIR = "_smoke_mesh"  # the ranks' rendezvous file and report, beside this script (gitignored)
+MESH_TIMEOUT_S = 120  # every collective of phase 11: a rank that dies cannot hang the script
+MESH_SEED = 1111  # the generator of phase 11's requests and draws
+# (a)'s requests: preset, flags, and each kernel's launches a request on a rank
+MESH_REQUESTS = {
+    "parity": ("parity", {}, {"fused_linear_act": 3000, "flash_attention": 5}),
+    "serving + use_int8_pallas": ("serving", dict(use_int8_pallas=True),
+                                  {"int8_linear_softplus": 100, "flash_attention": 5}),
+    "serving + use_int8_pallas + pallas_fuse_ends": (
+        "serving", dict(use_int8_pallas=True, pallas_fuse_ends=True),
+        {"int8_eps_fused_l12": 50, "int8_eps_fused_l34": 50, "flash_attention": 5}),
+}
+MESH_EVAL = dict(mc_trials=20, ddim_steps=10, ddim_eta=1.0, use_int8=True, use_int8_encode=True, attack_name="PGD",
+                 attack_eps=0.03)  # fast, with PGD
+# (b)'s steps: the mesh's rows of ranks, lowmem, FSDP, the compute dtype
+# (of the guidance and the members); bfloat16 is every deployment config's
+MESH_TRAIN = {
+    "(b1) 2 members on (member 2, data 1), bf16, fp32 Adam + EMA": ([[0], [1]], False, False, torch.bfloat16),
+    "(b2) 2 members on (member 1, data 2), bf16, fsdp_plan + lowmem": ([[0, 1]], True, True, torch.bfloat16),
+    "(b1) 2 members on (member 2, data 1), fp32, fp32 Adam + EMA": ([[0], [1]], False, False, torch.float32),
+    "(b2) 2 members on (member 1, data 2), fp32, fsdp_plan + lowmem": ([[0, 1]], True, True, torch.float32),
+}
+MESH_HEADS = (0, 1)  # the guidance heads of (b)'s two members: ViT blocks 0-1, K3 twice a step
+PROBE_COLS = 1 << 16  # columns of each member row of a leaf that (b) compares
+# the biases before a train-mode BatchNorm: their exact gradient is zero,
+# so their first moments are rounding noise on both sides (left out)
+PRE_BN_BIASES = ("enc_lin1.bias", "enc_lin2.bias", "enc_lin3.bias")
+# (b)'s bfloat16 bars against the float64 witness (hold_step)
+BF16_LOSS_RTOL = 2.0**-8
+BF16_MU_FACTOR = 2.0
+
+
+def mesh_modules(dtype=torch.bfloat16):
+    """Phase 4's guidance and five members in ``dtype``, from its seeded
+    generator, and the schedule."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch.models import init_random_
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    guidance = init_random_(L.SEViTGuidance(device="cuda", dtype=dtype), gen)
+    model = init_random_(L.ConditionalModel(5, device="cuda", dtype=dtype), gen)
+    sched = L.DiffusionSchedule.create("linear", 1000, 1e-4, 0.02, device="cuda")
+    return guidance, model, sched
+
+
+def mesh_guidance(dtype):
+    """(b)'s guidance: phase 4's in ``dtype`` (its seeded generator, drawn first)."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch.models import init_random_
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return init_random_(L.SEViTGuidance(device="cuda", dtype=dtype), gen)
+
+
+def mesh_inputs():
+    """(a)'s and (c)'s images and labels, (b)'s batch and injected draws."""
+    rng = np.random.default_rng(11)
+    images = rng.random((BATCH, 224, 224, 3), dtype="float32")
+    labels = rng.integers(0, 2, BATCH)
+    train_images = torch.from_numpy(rng.random((TRAIN_BATCH, 224, 224, 3), dtype="float32"))
+    train_labels = torch.from_numpy(rng.integers(0, 2, TRAIN_BATCH))
+    t = torch.from_numpy(rng.integers(0, 1000, (2, TRAIN_BATCH)))
+    noise = torch.from_numpy(rng.standard_normal((2, TRAIN_BATCH, 2)).astype(np.float32))
+    return images, labels, train_images, train_labels, t, noise
+
+
+def mesh_serve(guidance, model, sched, images, label, mesh=None):
+    """(a): one request at ``label``'s operating point, its launches counted
+    after the call that captures the batch's graph; (outputs, launches,
+    ms of the replay)."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+
+    preset, flags, _ = MESH_REQUESTS[label]
+    pred = L.Predictor.from_preset(preset, guidance=guidance, model=model, sched=sched, mc_trials=20, mesh=mesh,
+                                   **flags)
+    pred.predict(images, generator=generator(MESH_SEED))  # warm-up and capture
+    before = {k: K.launch_counts[k] for k in KERNELS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pred.predict(images, generator=generator(MESH_SEED))
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {k: K.launch_counts[k] - before[k] for k in KERNELS}, ms
+
+
+def mesh_evaluate(guidance, model, sched, images, labels, mesh=None):
+    """(c): one batch through ``evaluate_ensemble`` twice (the first
+    captures the graph); the second's samples, launches and seconds."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.infer import EvalConfig, evaluate_ensemble, make_eval_pipeline
+
+    cfg = EvalConfig(**MESH_EVAL)
+    pipe = make_eval_pipeline(guidance, model, sched, cfg, mesh=mesh)
+    run = lambda: evaluate_ensemble(guidance, model, sched, [(images, labels)], cfg,  # noqa: E731
+                                    generator=torch.Generator().manual_seed(MESH_SEED), mesh=mesh, pipeline=pipe)
+    run()
+    before = {k: K.launch_counts[k] for k in KERNELS}
+    t0 = time.perf_counter()
+    report = run()
+    return report["samples"], {k: K.launch_counts[k] - before[k] for k in KERNELS}, time.perf_counter() - t0
+
+
+def mesh_train(guidance, sched, label, mesh=None, dtype=None):
+    """(b): one full train step of two members from a fresh state (seeded),
+    with injected draws, then a second step timed; the first step's losses,
+    its parameters and first moments on each leaf's probe columns (rows and
+    columns this rank holds), the leaves' largest |mu|, ms a step and peak
+    GiB. ``dtype``: the members' compute dtype (the case's when None)."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.models import ConditionalModel
+    from ladine_tpu_torch.parallel import fsdp_plan
+    from ladine_tpu_torch.parallel.mesh import leaf_window
+    from ladine_tpu_torch.train import create_member_states, make_full_train_step, make_optimizer
+
+    _, lowmem, fsdp, case_dtype = MESH_TRAIN[label]
+    W = FULL_WIDTHS
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, images, labels, t, noise = mesh_inputs()
+    images, labels, t, noise = (v.cuda() for v in (images, labels, t, noise))
+    compute = ConditionalModel(2, W["data_dim"], W["feature"], W["hidden"], 2, W["n_steps"], device="meta",
+                               dtype=dtype or case_dtype)
+    plan = fsdp_plan(compute.state_dict(), mesh) if fsdp and mesh is not None else frozenset()
+    tx = make_optimizer("Adam", 1e-3, lowmem=lowmem)
+    gen = generator(MESH_SEED)
+    state = create_member_states(compute, gen, tx, 2, lowmem=lowmem, device="cuda", mesh=mesh, fsdp=plan)
+    step = make_full_train_step(guidance, compute, tx, sched, 5, 2, head_indices=MESH_HEADS, mesh=mesh, fsdp=plan)
+    n3 = K.launch_counts["flash_attention"]
+    state, losses = step(state, images, labels, gen, t=t, noise=noise)
+    torch.cuda.synchronize()
+    k3 = K.launch_counts["flash_attention"] - n3
+    probes = {}
+    for part, tensors in (("params", state.params), ("mu", state.opt_state["mu"])):
+        for k, v in tensors.items():
+            view = v.view(v.shape[0], -1)
+            w = leaf_window(view, mesh, k in plan)
+            cols = torch.arange(0, w.cols, max(1, w.cols // PROBE_COLS))
+            mine = (cols >= w.col0) & (cols < w.col0 + view.shape[1])
+            probes[(part, k)] = (w.row0, cols[mine], view[:, (cols[mine] - w.col0).cuda()].float().cpu())
+    mu_max = {k: float(v.float().abs().max()) for k, v in state.opt_state["mu"].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, images, labels, gen, t=t, noise=noise)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"losses": losses.cpu().numpy(), "probes": probes, "mu_max": mu_max, "k3": k3, "ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "fsdp": sorted(plan)}
+
+
+def mesh_reference():
+    """Phase 11's one-process results, made before the ranks start: (a)'s
+    requests, (c)'s samples, (b)'s steps and the float64 witness of each
+    bfloat16 step (its members computed in float64 behind the same bfloat16
+    guidance)."""
+    guidance, model, sched = mesh_modules()
+    images, labels = mesh_inputs()[:2]
+    ref = {"serve": {}, "train": {}, "witness": {}}
+    for label in MESH_REQUESTS:
+        out, counts, ms = mesh_serve(guidance, model, sched, images, label)
+        ref["serve"][label] = out
+        print(f"  one process, {label}: {ms:.1f} ms (graph); launches {counts}")
+    ref["eval"], counts, sec = mesh_evaluate(guidance, model, sched, images, labels)
+    print(f"  one process, evaluate_ensemble at fast + PGD: {sec:.2f} s; launches {counts}")
+    del model
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype != torch.bfloat16:
+            del guidance
+            free_memory()
+            guidance = mesh_guidance(dtype)
+        for label in mesh_cases(dtype):
+            ref["train"][label] = r = mesh_train(guidance, sched, label)
+            print(f"  one process, {label}: losses {r['losses'].tolist()}, {r['ms']:.1f} ms a step, peak "
+                  f"{r['peak_gib']:.2f} GiB")
+            if dtype == torch.bfloat16:
+                ref["witness"][label] = w = mesh_train(guidance, sched, label, dtype=torch.float64)
+                print(f"  float64 witness of {label}: losses {w['losses'].tolist()}, peak {w['peak_gib']:.2f} GiB")
+    del guidance
+    free_memory()
+    return ref
+
+
+def mesh_cases(dtype):
+    """(b)'s cases of one compute dtype."""
+    return [label for label, spec in MESH_TRAIN.items() if spec[3] == dtype]
+
+
+def mesh_rank(ref_path: str, out_path: str) -> None:
+    """One rank of phase 11: (a), (c), (b) on their meshes against the
+    one-process results in ``ref_path``; its counts, times and errors go to
+    rank 0, which writes them all to ``out_path``. Any failed bar raises."""
+    import torch.distributed as dist
+
+    from ladine_tpu_torch.parallel.mesh import mesh_of
+
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    ref = torch.load(ref_path, weights_only=False)
+    report = {"rank": rank, "serve": {}, "train": {}}
+    t0 = time.perf_counter()
+    guidance, model, sched = mesh_modules()
+    images, labels = mesh_inputs()[:2]
+    mesh = mesh_of([[0, 1]], "cuda")
+    report["seconds"] = {"modules": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for label, (_, _, want) in MESH_REQUESTS.items():
+        out, counts, ms = mesh_serve(guidance, model, sched, images, label, mesh)
+        check_outputs(out, BATCH)
+        base = ref["serve"][label]
+        diff = {k: float(np.abs(out[k] - base[k]).max()) for k in ("probs", "piw", "mc_variance")}
+        exact = all(np.array_equal(out[k], base[k]) for k in OUTPUTS)
+        assert np.array_equal(out["majority_vote"], base["majority_vote"]), label
+        for k in diff:
+            np.testing.assert_allclose(out[k], base[k], rtol=1e-4, atol=1e-5, err_msg=f"{label} {k}")
+        assert counts == {k: want.get(k, 0) for k in KERNELS}, (label, counts)
+        report["serve"][label] = {"ms": ms, "launches": counts, "max_diff": diff, "bit_equal": exact}
+        print(f"  rank {rank}: (a) {label} held; {gib_now()}", flush=True)
+    report["seconds"]["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples, counts, sec = mesh_evaluate(guidance, model, sched, images, labels, mesh)
+    np.testing.assert_allclose(samples, ref["eval"], rtol=1e-4, atol=1e-5, err_msg="evaluate_ensemble samples")
+    want = {k: 0 for k in KERNELS}
+    want["flash_attention"] = PGD_FORWARDS * VIT_DEPTH + 5
+    assert counts == want, ("evaluate_ensemble", counts)
+    report["eval"] = {"seconds": sec, "launches": counts, "max_diff": float(np.abs(samples - ref["eval"]).max()),
+                      "bit_equal": bool(np.array_equal(samples, ref["eval"]))}
+    report["seconds"]["(c)"] = time.perf_counter() - t0
+    print(f"  rank {rank}: (c) held; {gib_now()}", flush=True)
+    del model
+    free_memory()
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype != torch.bfloat16:
+            del guidance
+            free_memory()
+            guidance = mesh_guidance(dtype)
+        for label in mesh_cases(dtype):
+            got = mesh_train(guidance, sched, label, mesh_of(MESH_TRAIN[label][0], "cuda"))
+            report["train"][label] = hold_step(label, got, ref["train"][label], ref["witness"].get(label))
+            print(f"  rank {rank}: {label} held; peak {got['peak_gib']:.2f} GiB", flush=True)
+    del guidance
+    report["seconds"]["(b)"] = time.perf_counter() - t0
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, report)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(reports, f)
+
+
+def probe_at(result, part, k, row0, cols, rows):
+    """``result``'s (one process) probe values of leaf ``k`` at a rank's
+    ``rows`` from ``row0`` and its probe columns ``cols``."""
+    _, all_cols, vals = result["probes"][(part, k)]
+    return vals[row0:row0 + rows][:, torch.isin(all_cols, cols)]
+
+
+def hold_step(label, got, base, witness=None):
+    """(b)'s bars on a rank: its step ``got`` against the one-process step
+    ``base`` on the rank's probes. A float32 case: losses rtol 1e-5,
+    parameters atol 2.1e-3, first moments 1e-3 of their leaf's largest (a
+    bfloat16 moment of ``lowmem`` may also round one step apart). A
+    bfloat16 case holds both steps against the float64 ``witness``: each
+    within BF16_LOSS_RTOL of its losses, and the rank's first moments no
+    farther from its moments than BF16_MU_FACTOR times the one-process
+    step's own distance, leaf by leaf, floored at one bfloat16 unit of the
+    leaf's largest. Returns the report entry."""
+    lowmem = MESH_TRAIN[label][1]
+    rel = lambda a, b: float(np.abs(a / b - 1).max())  # noqa: E731
+    entry = {"ms": got["ms"], "peak_gib": got["peak_gib"], "k3": got["k3"], "fsdp_leaves": len(got["fsdp"]),
+             "loss_rel": rel(got["losses"], base["losses"]), "params_abs": 0.0, "mu_of_max": 0.0}
+    assert got["k3"] == len(MESH_HEADS), (label, got["k3"])
+    if witness is None:
+        np.testing.assert_allclose(got["losses"], base["losses"], rtol=1e-5, err_msg=f"{label} losses")
+    else:
+        entry["loss_rel_f64"] = [rel(base["losses"], witness["losses"]), rel(got["losses"], witness["losses"])]
+        assert max(entry["loss_rel_f64"]) <= BF16_LOSS_RTOL, (label, entry["loss_rel_f64"])
+        entry["mu_f64"] = {}
+    for (part, k), (row0, cols, vals) in got["probes"].items():
+        if part == "mu" and k in PRE_BN_BIASES:
+            continue
+        want = probe_at(base, part, k, row0, cols, vals.shape[0])
+        diff = (vals - want).abs()
+        if part == "params":
+            assert (diff <= 2.1e-3).all(), (label, part, k, float(diff.max()))
+            entry["params_abs"] = max(entry["params_abs"], float(diff.max()))
+            continue
+        # a bfloat16 moment (lowmem) may round a step apart
+        step = 2.0**-7 * want.abs() if lowmem else 0.0
+        entry["mu_of_max"] = max(entry["mu_of_max"], float(diff.max()) / max(base["mu_max"][k], 1e-30))
+        if witness is None:
+            assert (diff <= 1e-3 * base["mu_max"][k] + step).all(), (label, part, k, float(diff.max()))
+            continue
+        exact = probe_at(witness, part, k, row0, cols, vals.shape[0])
+        top = max(witness["mu_max"][k], 1e-30)
+        own = float(((want - exact).abs() - step).clamp_min(0).max()) / top
+        mine = float(((vals - exact).abs() - step).clamp_min(0).max()) / top
+        entry["mu_f64"][k] = (own, mine)
+        assert mine <= BF16_MU_FACTOR * max(own, 2.0**-8), (label, k, own, mine)
+    return entry
+
+
+def _mesh_entry(rank: int, world: int, root: str) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'rdzv')}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh_rank(os.path.join(root, "reference.pt"), os.path.join(root, "report.json"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh():
+    """Phase 11 (a)-(c): the one-process references here, then two ranks
+    spawned on the card (a rank's exception is raised here by
+    ``torch.multiprocessing.spawn``, after which the script fails). Returns
+    each kernel's launches on a rank over (a)."""
+    import torch.multiprocessing as mp
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), MESH_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        torch.save(mesh_reference(), os.path.join(root, "reference.pt"))
+        ref_s = time.perf_counter() - t0
+        print(f"  one-process references in {ref_s:.1f} s; {gib_now()}; spawning 2 ranks over gloo on the card")
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_entry, args=(2, root), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        with open(os.path.join(root, "report.json")) as f:
+            reports = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    card = gpu_line()
+    for r in reports:
+        print(f"  rank {r['rank']} (two processes sharing one {card}: not a multi-card time):")
+        for label, a in r["serve"].items():
+            print(f"    (a) {label}: {a['ms']:.1f} ms a request (graph, 4 of the batch's 8 images); launches "
+                  f"{a['launches']}; max |difference| from one process {a['max_diff']}; bit-equal {a['bit_equal']}")
+        e = r["eval"]
+        print(f"    (c) evaluate_ensemble, fast + PGD, batch 8: {e['seconds']:.2f} s; launches {e['launches']}; "
+              f"samples max |difference| {e['max_diff']:.2e}; bit-equal {e['bit_equal']}")
+        for label, b in r["train"].items():
+            print(f"    {label}: {b['ms']:.1f} ms a step, peak {b['peak_gib']:.2f} GiB, K3 {b['k3']} a step; "
+                  f"losses rel {b['loss_rel']:.2e}, params max |difference| {b['params_abs']:.2e}, first moments "
+                  f"{b['mu_of_max']:.2e} of their leaf's largest; {b['fsdp_leaves']} leaves sharded over data")
+            if "loss_rel_f64" in b:
+                own, mine = b["loss_rel_f64"]
+                ratio = max(m / max(o, 2.0**-8) for o, m in b["mu_f64"].values())
+                print(f"      against the float64 witness: losses rel {own:.2e} (one process) and {mine:.2e} "
+                      f"(this rank); first moments, each leaf's largest error over its largest moment, at most "
+                      f"{max(o for o, _ in b['mu_f64'].values()):.2e} (one process) and "
+                      f"{max(m for _, m in b['mu_f64'].values()):.2e} (this rank), the rank's at most {ratio:.2f} "
+                      f"times the one process's (floored at 2^-8)")
+        print(f"    seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+    print(f"  phase 11 seconds: references {ref_s:.1f}, the two ranks {spawn_s:.1f}")
+    launches = {k: 0 for k in KERNELS}
+    for a in reports[0]["serve"].values():
+        for k, v in a["launches"].items():
+            launches[k] += v
+    return launches
+
+
+def check_phase11_shapes(entries):
+    """After phase 11 (not counted): each kernel against its plain version
+    at the shapes a rank gave it: 80 rows a member (4 images x 20 trials)
+    in K1 (lin2/lin3 and lin1 at K = 4), K4, K5a and K5b; K3 at the
+    guidance's 197 tokens, bf16 at batches 4, 15 and 30 and fp32 at 15 and
+    30. Each entry's
+    ``max_abs_err`` takes the largest error, and ``phase11`` lists them."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    by_name = {e["name"]: e for e in entries}
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, got, want, tol):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(compare(f"{name} {label}", a, b, tol) for a, b in zip(got, want))
+        by_name[name].setdefault("phase11", {})[label] = err
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    bf16 = torch.bfloat16
+    m, r, f_ = 5, 20 * BATCH // 2, FULL_WIDTHS["feature"]
+    x = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=bf16)
+    w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=bf16)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    held("fused_linear_act", f"lin2/lin3 {tuple(x.shape)} bf16", K.fused_linear_act(x, w, a, c, None),
+         K.fused_linear_act_plain(x, w, a, c, None), 2e-2)
+    f = rnd(m, r, f_)
+    y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=bf16)
+    w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=bf16)
+    held("fused_linear_act", f"lin1 K = 4 y_in{tuple(y_in.shape)} bf16, gate fp32",
+         K.fused_linear_act(y_in, w1, a, c, f), K.fused_linear_act_plain(y_in, w1, a, c, f), 2e-2)
+    # the guidance's 197 tokens at (a)'s and (c)'s batch 4 a rank, (b1)'s
+    # whole 30 and (b2)'s 15 a rank, in (b)'s two compute dtypes
+    for dtype, batches, tol in ((bf16, (BATCH // 2, TRAIN_BATCH // 2, TRAIN_BATCH), 2e-2),
+                                (torch.float32, (TRAIN_BATCH // 2, TRAIN_BATCH), 1e-4)):
+        for b in batches:
+            qkv = rnd(b, 197, 3, 12, 64, lo=-2.0, hi=2.0, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            held("flash_attention", f"{(b, 197, 12, 64)} {str(dtype)[6:]}", K.flash_attention(q, k, v),
+                 K.flash_attention_plain(q, k, v), tol)
+    w_q, w_scale = Q.quantize_weight(w.float())
+    s = (w_scale * a).contiguous()
+    h = rnd(m, r, f_, lo=0.0, hi=2.0)
+    xmax = h.amax(-1, keepdim=True).contiguous()
+    colsum = w_q.sum(dim=1, dtype=torch.int32).float()
+    args = (h, xmax, w_q, s, c, colsum)
+    held("int8_linear_softplus", f"zero-point {tuple(h.shape)} fp32", K.int8_linear_softplus(*args),
+         K.int8_linear_softplus_plain(*args), 1e-3)
+    fb, yb = f.to(bf16), y_in
+    args = (fb, yb, w1, a, c, w_q, s, c)
+    held("int8_eps_fused_l12", f"f{tuple(fb.shape)} bf16", K.int8_eps_l12(*args), K.int8_eps_l12_plain(*args), 2e-2)
+    w4 = rnd(m, f_, 2, lo=-f_**-0.5, hi=f_**-0.5)  # h2's dtype: the float32 rows
+    args = (h, xmax, w_q, s, c, colsum, w4)
+    held("int8_eps_fused_l34", f"h2{tuple(h.shape)} fp32, w4{tuple(w4.shape)}", K.int8_eps_l34(*args),
+         K.int8_eps_l34_plain(*args), 1e-3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available: this script runs only on an NVIDIA card")
@@ -2048,6 +2506,16 @@ def main() -> int:
     check_cli_shapes(entries)
     print("  phase 10's kernels against their plain versions at its new shapes (not counted)")
     check_phase10_shapes(entries)
+    print(f"== phase 11: the mesh at full width, two gloo ranks sharing the card: (a) serving, (c) evaluate_ensemble, "
+          f"(b) train steps [{time.perf_counter() - start:.0f} s]")
+    free_memory()
+    t11 = time.perf_counter()
+    mesh_launches = run_mesh()
+    t = time.perf_counter()
+    print("  phase 11's kernels against their plain versions at a rank's shapes (not counted)")
+    check_phase11_shapes(entries)
+    print(f"  phase 11 in {time.perf_counter() - t11:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
+          f"launches a rank {mesh_launches}")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
@@ -2056,7 +2524,9 @@ def main() -> int:
         e["train_launches"] = train_launches.get(e["name"], 0)
         e["cli_launches"] = cli_launches.get(e["name"], 0)
         e["phase10_launches"] = phase10_launches.get(e["name"], 0)
-        if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"]):
+        e["phase11_launches"] = mesh_launches.get(e["name"], 0)
+        if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"],
+                 e["phase11_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

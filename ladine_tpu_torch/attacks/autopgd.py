@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ladine_tpu_torch.attacks.gradient import linf_start
+
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -73,7 +75,7 @@ def apgd_ce(
 
     with torch.no_grad():
         if x_init is None:
-            x_init = x + torch.empty_like(x).uniform_(-eps, eps, generator=generator)
+            x_init = linf_start(x, eps, generator)
         x0 = project(x_init.to(x))
         f0 = ce(x0)
         eta = torch.full((x.shape[0], 1, 1, 1), 2.0 * eps, device=x.device)

@@ -63,6 +63,20 @@ def _l2_step(logits_fn, adv, x, labels, eps, alpha):
     return _l2_project(adv + alpha * g / _l2_norm(g).clamp_min(1e-12), x, eps)
 
 
+def linf_start(x: torch.Tensor, eps: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The Linf random start before its projection: ``x + U(-eps, eps)``."""
+    return x + torch.empty_like(x).uniform_(-eps, eps, generator=generator)
+
+
+def l2_start(x: torch.Tensor, eps: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The L2 random start before its clip: ``x + eps * r * u``, u a unit
+    normal direction and r ~ U^(1/d) per image."""
+    u = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = u / _l2_norm(u).clamp_min(1e-12)
+    r = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device, dtype=x.dtype)
+    return x + eps * r ** (1.0 / x[0].numel()) * u
+
+
 def fgsm(logits_fn: LogitsFn, x: torch.Tensor, labels: torch.Tensor,
          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fast Gradient Sign Method."""
@@ -87,13 +101,9 @@ def pgd(
     ``x + U(-eps, eps)`` projected, or ``x_init`` projected."""
     x = x.detach()
     alpha = eps * rel_stepsize
-    if x_init is not None:
-        adv = _linf_project(x_init.to(x), x, eps)
-    elif random_start:
-        u = torch.empty_like(x).uniform_(-eps, eps, generator=generator)
-        adv = _linf_project(x + u, x, eps)
-    else:
-        adv = x
+    if x_init is None and random_start:
+        x_init = linf_start(x, eps, generator)
+    adv = x if x_init is None else _linf_project(x_init.to(x), x, eps)
     for _ in range(steps):
         g = _ce_grad(logits_fn, adv, labels)
         adv = _linf_project(adv + alpha * torch.sign(g), x, eps)
@@ -139,15 +149,9 @@ def l2pgd(
     ``clip(x + eps * r * u)`` with u a unit normal direction and r ~
     U^(1/d), or ``clip(x_init)``."""
     x = x.detach()
-    if x_init is not None:
-        adv = x_init.to(x).clamp(0.0, 1.0)
-    elif random_start:
-        u = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        u = u / _l2_norm(u).clamp_min(1e-12)
-        r = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device, dtype=x.dtype)
-        adv = (x + eps * r ** (1.0 / x[0].numel()) * u).clamp(0.0, 1.0)
-    else:
-        adv = x
+    if x_init is None and random_start:
+        x_init = l2_start(x, eps, generator)
+    adv = x if x_init is None else x_init.to(x).clamp(0.0, 1.0)
     for _ in range(steps):
         adv = _l2_step(logits_fn, adv, x, labels, eps, eps * rel_stepsize)
     return adv, _success(logits_fn, adv, labels)

@@ -23,11 +23,22 @@ its attention kernel), --low_mem_mode, --ni, --thread.
 ``--set section.key=value`` is strict here (``ROADMAP.md`` §3 D3): an
 unknown section or leaf exits, a value is a float only where the field is,
 and ``--set data.seed=...`` wins over ``--seed``.
+
+On N cards, one rank a card:
+
+    torchrun --nproc_per_node N -m ladine_tpu_torch.cli.main --config ... --train [--fsdp]
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``main`` initializes the process
+group, ``nccl`` on ``--device cuda`` with ``cuda:LOCAL_RANK``, ``gloo`` on
+``--device cpu`` (a group the caller initialized first is used as it is);
+the runner trains and evaluates on the ('member', 'data') mesh
+(``parallel/``), and rank 0 alone writes files and prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import dataclasses
 import json
 import os
@@ -120,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true", help="with --test/--calib: int8 lin2/lin3 (kernels/int8.py)")
     p.add_argument("--int8_encode", action="store_true", help="with --test/--calib: int8 enc_lin1 and mapping heads")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard the train state over a mesh of cards (not ported: ROADMAP.md slice E item 16)")
+                   help="on a mesh of ranks (torchrun): shard the large leaves of the train state over the data "
+                        "axis too")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--low_mem_mode", action="store_true", help="accepted for compatibility")
     p.add_argument("--ni", action="store_true", help="non-interactive (compat no-op)")
@@ -198,8 +210,12 @@ def _is_train_ckpt(p: str) -> bool:
 
 
 def _write_report(log_dir: str, result: dict, name: str = "report.json") -> None:
-    with open(os.path.join(log_dir, name), "w") as f:
-        json.dump(result, f, indent=2)
+    """The report, written by rank 0 alone under a process group."""
+    from ladine_tpu_torch.parallel.mesh import is_writer
+
+    if is_writer():
+        with open(os.path.join(log_dir, name), "w") as f:
+            json.dump(result, f, indent=2)
 
 
 def _report_row(rep: dict) -> dict:
@@ -214,11 +230,45 @@ def _plots(report: dict, log_dir: str) -> None:
         print(f"wrote {pth}", file=sys.stderr)
 
 
+def _init_distributed(device: str) -> tuple:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1, no group yet): initialize the
+    default process group, ``nccl`` with ``cuda:LOCAL_RANK`` for a card,
+    ``gloo`` for the CPU. Returns (the device string of this rank, whether
+    this call made the group)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device, False
+    if device.startswith("cuda"):
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    if dist.is_initialized():
+        return device, False
+    import torch
+
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    # a rank waits at a barrier while rank 0 writes a checkpoint
+    dist.init_process_group("nccl" if device.startswith("cuda") else "gloo", timeout=datetime.timedelta(minutes=30))
+    return device, True
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from ladine_tpu_torch.device import cli_device
 
-    dev = cli_device(args.device)
+    device, made_group = _init_distributed(args.device)
+    try:
+        return _main(args, cli_device(device))
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, dev) -> int:
     cfg = build_config(args)
     if args.make_plots:
         from ladine_tpu_torch.utils.plots import require_matplotlib
@@ -235,7 +285,14 @@ def main(argv=None) -> int:
 
     log_dir = os.path.join(args.exp, "logs", args.doc)
     runner = Runner(cfg, log_dir=log_dir, demo=args.demo, device=dev)
-    cfg.save_yaml(os.path.join(log_dir, "config.yml"))
+    writer = runner.writer
+
+    def print(*a, **k):  # rank 0 alone prints, under a process group
+        if writer:
+            builtins.print(*a, **k)
+
+    if writer:
+        cfg.save_yaml(os.path.join(log_dir, "config.yml"))
     if args.temperature:
         runner.temperature = args.temperature
 
@@ -295,7 +352,8 @@ def main(argv=None) -> int:
                 ddim_steps=cfg.diffusion.ddim_steps or 50, ddim_eta=cfg.diffusion.ddim_eta,
                 head_indices=(args.mlp_idx,) if args.mlp_idx is not None else None, device=dev)
             artifact = os.path.join(log_dir, "predictor_artifact")
-            predictor.save(artifact)
+            if writer:
+                predictor.save(artifact)
             summary["predictor_artifact"] = artifact
         print(json.dumps(summary))
         return 0
@@ -314,7 +372,7 @@ def main(argv=None) -> int:
         report["calibrated_temperature"] = t_best
         if args.tune_T:
             report["nll_tuned_temperature"] = tune_temperature_nll(dump["samples"], dump["labels"])
-        if args.make_plots:
+        if args.make_plots and writer:
             _plots(report, log_dir)
         printable = {k: v for k, v in report.items() if k not in ("samples", "labels")}
         result = _json_sanitize({"mode": "calib_cached", **printable})
@@ -374,7 +432,8 @@ def main(argv=None) -> int:
                 noise_prior=eval_cfg.noise_prior, use_int8=eval_cfg.use_int8,
                 use_int8_encode=eval_cfg.use_int8_encode, head_indices=exp_hi, device=dev)
             artifact = os.path.join(log_dir, "predictor_artifact")
-            predictor.save(artifact)
+            if writer:
+                predictor.save(artifact)
             print(f"exported predictor -> {artifact}", file=sys.stderr)
             del predictor
         if args.test and args.suite:
@@ -420,10 +479,10 @@ def main(argv=None) -> int:
             from ladine_tpu_torch.infer import tune_temperature_nll
 
             report["nll_tuned_temperature"] = tune_temperature_nll(report["samples"], report["labels"])
-        if args.save_samples:
+        if args.save_samples and writer:
             np.savez_compressed(os.path.join(log_dir, "samples.npz"), samples=report["samples"],
                                 labels=report["labels"])
-        if args.make_plots:
+        if args.make_plots and writer:
             _plots(report, log_dir)
         printable = {k: v for k, v in report.items() if k not in ("samples", "labels")}
         result = _json_sanitize({"mode": "test" if args.test else "calib", **printable})

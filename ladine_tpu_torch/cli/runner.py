@@ -15,9 +15,12 @@ dict with the leading member axis, running statistics included. Random
 draws come from ``torch.Generator``s seeded from the run's seed.
 
 Everything runs on ``device`` (default ``"cuda"``; without a card it raises
-unless the caller passes ``"cpu"``). The multi-card mesh of the JAX runner
-(``parallel/``) is not ported: with one card it is not needed, and with
-more, a mesh asked for (``model.fsdp``) raises.
+unless the caller passes ``"cpu"``). Under an initialized process group of
+more than one rank (``cli.main`` initializes one under ``torchrun``) the
+member training and the evaluation run on the JAX runner's
+('member', 'data') mesh (``parallel/``; ``model.fsdp`` shards the train
+state's large leaves over 'data' too), and rank 0 alone writes files and
+logs while the others wait where they would read them.
 """
 
 from __future__ import annotations
@@ -40,6 +43,17 @@ from ladine_tpu_torch.infer.evaluator import EvalConfig, compute_report, evaluat
 from ladine_tpu_torch.metrics.classification import majority_vote
 from ladine_tpu_torch.models import ConditionalModel, SEViTGuidance, init_random_
 from ladine_tpu_torch.ops import DiffusionSchedule, ddim_timesteps, one_hot_and_prototype
+from ladine_tpu_torch.parallel import (
+    describe_mesh,
+    factor_mesh,
+    fsdp_plan,
+    gather_data,
+    gather_tree,
+    group_devices_by_slice,
+    make_mesh,
+    make_multislice_mesh,
+)
+from ladine_tpu_torch.parallel.mesh import in_mesh, is_writer, mesh_shape
 from ladine_tpu_torch.train import (
     MemberTrainState,
     create_member_states,
@@ -91,8 +105,11 @@ class Runner:
         self.log_dir = log_dir
         self.demo = demo
         self.device = resolve_device(device)
-        self.logger = setup_logging(log_dir)
-        self.scalars = ScalarLogger(log_dir)
+        # rank 0 of a process group writes files and logs, or a lone process
+        self.writer = is_writer()
+        self.logger = setup_logging(log_dir if self.writer else None)
+        self.scalars = ScalarLogger(log_dir if self.writer else None)
+        self._meshes: Dict[int, Any] = {}
         c = config
         if demo:
             # tiny structurally-real models + synthetic data: the runnable
@@ -456,7 +473,7 @@ class Runner:
             else:
                 yh_all_train = self.precompute_yhat(gmod, "train", all_heads, c.training.batch_size)
                 yh_all_valid = self.precompute_yhat(gmod, "valid", all_heads, c.sampling.batch_size)
-                if yhat_cache_path:
+                if yhat_cache_path and self.writer:
                     np.savez(yhat_cache_path, train=yh_all_train, valid=yh_all_valid)
                     self.logger.info(f"cached y0_hat to {yhat_cache_path}")
             sel = list(hidx)
@@ -464,9 +481,14 @@ class Runner:
             gmod = None  # the guidance leaves the card before the member states arrive
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-        states = create_member_states(self.cond, gen, tx, n_train_members, lowmem=c.optim.lowmem, device=dev)
-        if member_idx is None:
-            self._maybe_mesh(c.training.batch_size)
+        mesh = self._maybe_mesh(c.training.batch_size) if member_idx is None else None
+        fsdp = fsdp_plan(self.cond.state_dict(), mesh) if mesh is not None and c.model.fsdp else frozenset()
+        states = create_member_states(self.cond, gen, tx, n_train_members, lowmem=c.optim.lowmem, device=dev,
+                                      mesh=mesh, fsdp=fsdp)
+        if mesh is not None:
+            self.logger.info(f"training on mesh {dict(zip(mesh.mesh_dim_names, mesh_shape(mesh)))}"
+                             + (" (joint)" if joint_train else "")
+                             + (f" (fsdp: {len(fsdp)} leaves over data)" if fsdp else ""))
         start_epoch, best_acc = 0, -1.0
         aux_tx = aux_opt = gparams = None
         if joint_train:
@@ -487,7 +509,7 @@ class Runner:
                 raise ValueError(
                     f"{resume_from} was trained with optim.lowmem={ckpt_lowmem} but this run has "
                     f"optim.lowmem={c.optim.lowmem}; pass --set optim.lowmem={str(ckpt_lowmem).lower()} to resume it")
-            states, ck_guidance, meta = load_train_state(resume_from, device=dev)
+            states, ck_guidance, meta = load_train_state(resume_from, device=dev, mesh=mesh, fsdp=fsdp)
             if ck_guidance is not None:
                 gvars = ck_guidance
                 if joint_train:
@@ -512,16 +534,18 @@ class Runner:
         # reference's live train loop never consults the flag)
         train_noise_prior = c.diffusion.noise_prior and c.diffusion.noise_prior_training
         compute = self._cond_template(n_train_members)
+        on_mesh = dict(mesh=mesh, fsdp=fsdp)
         if joint_train:
             step_fn = make_joint_train_step(self.guidance, compute, tx, aux_tx, self.sched, n_train_members,
                                             c.data.num_classes, c.model.ema_rate, head_indices=head_indices,
-                                            noise_prior=train_noise_prior)
+                                            noise_prior=train_noise_prior, **on_mesh)
         elif precompute_yhat:
-            step_fn = make_multi_member_step(compute, tx, self.sched, c.model.ema_rate, train_noise_prior)
+            step_fn = make_multi_member_step(compute, tx, self.sched, c.model.ema_rate, train_noise_prior,
+                                             **on_mesh)
         else:
             step_fn = make_full_train_step(gmod, compute, tx, self.sched, n_train_members, c.data.num_classes,
                                            c.model.ema_rate, head_indices=head_indices,
-                                           noise_prior=train_noise_prior)
+                                           noise_prior=train_noise_prior, **on_mesh)
 
         global_step, images_seen, train_seconds = 0, 0, 0.0
         best_ckpt_path = None
@@ -529,7 +553,7 @@ class Runner:
         # a marker of an earlier completed run in this log dir must not
         # pass for this one while it is partial
         marker_path = os.path.join(self.log_dir, "train_complete.json")
-        if os.path.exists(marker_path):
+        if self.writer and os.path.exists(marker_path):
             os.remove(marker_path)
         for epoch in range(start_epoch, epochs):
             t_epoch = time.perf_counter()
@@ -562,7 +586,7 @@ class Runner:
                 val_gen = torch.Generator(device=dev).manual_seed(derive_seed(seed, 1_000_000 + epoch))
                 vmod = self.guidance_module(gvars) if joint_train else gmod
                 acc = self._validate(vmod, states, val_gen, head_indices=head_indices, use_ema=eval_ema,
-                                     ema_mode=ema_init_mode, precomputed_yhat=yhat_valid)
+                                     ema_mode=ema_init_mode, precomputed_yhat=yhat_valid, mesh=mesh, fsdp=fsdp)
                 del vmod
                 self.scalars.add_scalar("accuracy", acc, global_step)
                 self.logger.info(f"epoch {epoch}: validation majority-vote acc {acc:.2f}%")
@@ -571,21 +595,26 @@ class Runner:
                     best_ckpt_path = self._save_best(
                         states, gvars, epoch, acc, member_idx, ema_init_mode, light_ckpt,
                         guidance_untouched, guidance_ckpt, vit_ckpt, mlp_dir, best_ckpt_path,
-                        aux_opt if joint_train else None)
+                        aux_opt if joint_train else None, mesh, fsdp)
         # written after every save: a script that resumes a pipeline tells
         # "training finished" from "a best checkpoint exists" (saved mid-run)
-        with open(marker_path, "w") as f:
-            json.dump({"best_accuracy": best_acc, "steps": global_step, "epochs": epochs,
-                       "best_ckpt_path": best_ckpt_path}, f)
+        if self.writer:
+            with open(marker_path, "w") as f:
+                json.dump({"best_accuracy": best_acc, "steps": global_step, "epochs": epochs,
+                           "best_ckpt_path": best_ckpt_path}, f)
+        if mesh is not None and best_ckpt_path is None:
+            states = gather_tree(states, mesh, fsdp)  # the final weights are all a caller gets
         return {"best_accuracy": best_acc, "steps": global_step, "states": states, "guidance": gvars,
                 "best_ckpt_path": best_ckpt_path, "ema_init": ema_init_mode,
                 "train_seconds": train_seconds, "images": images_seen,
                 "last_losses": losses.float().cpu().tolist() if global_step else None}
 
     def _save_best(self, states: MemberTrainState, gvars, epoch, acc, member_idx, ema_init_mode, light_ckpt,
-                   guidance_untouched, guidance_ckpt, vit_ckpt, mlp_dir, previous, aux_opt) -> str:
+                   guidance_untouched, guidance_ckpt, vit_ckpt, mlp_dir, previous, aux_opt,
+                   mesh=None, fsdp=()) -> str:
         """The best checkpoint, named as the reference names it; a light one
-        replaces the previous best on disk."""
+        replaces the previous best on disk. On a mesh every rank calls this
+        and rank 0 writes (``save_train_state``)."""
         c = self.config
         path = os.path.join(self.log_dir, best_checkpoint_name(
             "diffu" if member_idx is not None else "diffu_all",
@@ -605,10 +634,10 @@ class Runner:
             meta["guidance_src_rel"] = {k: os.path.relpath(os.path.abspath(v), path) if v else None
                                         for k, v in srcs.items()}
         save_train_state(path, states, meta, guidance=ckpt_gvars, light=light_ckpt,
-                         light_dtype=self.dtype if light_ckpt else None)
-        if light_ckpt and previous and previous != path:
+                         light_dtype=self.dtype if light_ckpt else None, mesh=mesh, fsdp=fsdp)
+        if self.writer and light_ckpt and previous and previous != path:
             shutil.rmtree(previous, ignore_errors=True)
-        if aux_opt is not None:
+        if self.writer and aux_opt is not None:
             save_checkpoint(path + "_aux", {"aux_opt": aux_opt}, {"kind": "aux_optimizer"})
         self.logger.info(f"saved best ckpt to {path}")
         return path
@@ -616,15 +645,19 @@ class Runner:
     @torch.no_grad()
     def _validate(self, gmod: Optional[SEViTGuidance], states: MemberTrainState, generator: torch.Generator,
                   mc_trials: int = 1, head_indices=None, use_ema: bool = False, ema_mode: str = "zero",
-                  precomputed_yhat: Optional[np.ndarray] = None) -> float:
+                  precomputed_yhat: Optional[np.ndarray] = None, mesh=None, fsdp=()) -> float:
         """Majority-vote accuracy on the validation split, the in-training
         quality gate. ``head_indices`` aligns the guidance heads with the
         trained members; ``use_ema`` validates the EMA; the sampler strides
-        by ``diffusion.val_ddim_steps`` (else ``ddim_steps``)."""
+        by ``diffusion.val_ddim_steps`` (else ``ddim_steps``). On a mesh each
+        rank samples its member rows (its FSDP leaves gathered whole)."""
         c = self.config
         params = ema_read(states.ema, c.model.ema_rate, states.step, ema_mode) if use_ema else states.params
-        model = self.members_module({**params, **states.batch_stats})
-        n_members = states.step.shape[0]
+        tensors = {**params, **states.batch_stats}
+        if fsdp:
+            tensors = {k: gather_data(v, mesh, dim=1) if k in fsdp else v for k, v in tensors.items()}
+        model = self.members_module(tensors)
+        n_members = states.step.shape[0] * (1 if mesh is None else mesh_shape(mesh)[0])
         idx = tuple(int(i) for i in (head_indices if head_indices is not None else range(n_members)))
         val_steps = c.diffusion.val_ddim_steps or c.diffusion.ddim_steps
         tau = ddim_timesteps(self.sched.num_timesteps, val_steps, c.diffusion.skip_type).tolist() if val_steps else None
@@ -639,7 +672,7 @@ class Runner:
                 yh = torch.softmax(gmod.heads_subset(x, idx).float(), dim=-1)
             samples = nested_ensemble_sample(model, x.reshape(len(y), -1), yh, self.sched, mc_trials=mc_trials,
                                              tau=tau, eta=c.diffusion.ddim_eta, noise_prior=c.diffusion.noise_prior,
-                                             generator=generator)
+                                             generator=generator, mesh=mesh)
             m, k, b, cl = samples.shape
             mv = majority_vote(samples.reshape(m * k, b, cl).float())
             correct += int((mv == y).sum())
@@ -647,18 +680,45 @@ class Runner:
         return 100.0 * correct / max(total, 1)
 
     def _maybe_mesh(self, batch_size: int):
-        """The JAX runner's (member, data) mesh over the visible devices.
-        One card needs none (returns None); the port's multi-card mesh is
-        ROADMAP slice E item 16, so with more cards a mesh asked for
-        (``model.fsdp``) raises, and otherwise the run says it uses one."""
-        if self.device.type != "cuda" or torch.cuda.device_count() <= 1:
+        """The JAX runner's ('member', 'data') mesh over the ranks of an
+        initialized process group of more than one rank (one per batch size,
+        made once: every rank calls this alike): across nodes
+        (``make_multislice_mesh``) when the ranks span several and its data
+        axis tiles the batch, else the most ranks whose data axis does. A
+        rank left out of that mesh runs unsharded (None), as does a lone
+        process; one that sees several cards says how to launch a rank a
+        card."""
+        if not (torch.distributed.is_available() and torch.distributed.is_initialized()) \
+                or torch.distributed.get_world_size() == 1:
+            if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+                n = torch.cuda.device_count()
+                self.logger.warning(f"{n} cards are visible to one process; the port runs a rank a card: launch "
+                                    f"`torchrun --nproc_per_node {n} -m ladine_tpu_torch.cli.main ...` for the "
+                                    f"mesh (now on {self.device} alone)")
             return None
-        if self.config.model.fsdp:
-            raise NotImplementedError(
-                f"{torch.cuda.device_count()} cards are visible and a mesh is asked for (--fsdp), but the "
-                "port's mesh (parallel/) is not ported yet: ROADMAP.md slice E item 16")
-        self.logger.warning(f"{torch.cuda.device_count()} cards are visible; the port runs on {self.device} alone "
-                            "(the mesh of parallel/ is ROADMAP.md slice E item 16)")
+        if batch_size not in self._meshes:
+            self._meshes[batch_size] = self._make_mesh(batch_size)
+        mesh = self._meshes[batch_size]
+        return mesh if mesh is not None and in_mesh(mesh) else None
+
+    def _make_mesh(self, batch_size: int):
+        world = torch.distributed.get_world_size()
+        members, device_type = self.config.diffusion.num_members, self.device.type
+        slices = group_devices_by_slice(range(world))
+        if len(slices) > 1:
+            # the member axis across nodes: the gradient sums stay on NVLink
+            mesh = make_multislice_mesh(num_members=members, device_type=device_type)
+            if batch_size % mesh_shape(mesh)[1] == 0:
+                self.logger.info(describe_mesh(mesh, num_slices=len(slices)))
+                return mesh
+            self.logger.warning(f"multislice data axis {mesh_shape(mesh)[1]} does not tile batch {batch_size}; "
+                                "falling back to flat rank packing")
+        for n in range(world, 1, -1):
+            m_dim, d_dim = factor_mesh(n, members)
+            if batch_size % d_dim == 0:
+                self.logger.info(f"mesh: {n} devices as (member={m_dim}, data={d_dim})")
+                return make_mesh(n, num_members=members, device_type=device_type)
+        self.logger.warning(f"no rank count <= {world} tiles batch {batch_size}; every rank runs unsharded")
         return None
 
     def pretrain_guidance(self, gvars: Dict[str, Tensors], steps: int = 60, batch_size: int = 8):

@@ -59,7 +59,7 @@ class ModelConfig:
     ema: bool = True
     dtype: str = "float32"  # or "bfloat16"
     use_pallas: bool = False  # the JAX package's Pallas attention; the port's ViT always runs K3
-    fsdp: bool = False  # shard the train state over the data axis (parallel/, not ported)
+    fsdp: bool = False  # on a mesh (parallel/): shard the train state's large leaves over the data axis too
 
 
 @dataclass

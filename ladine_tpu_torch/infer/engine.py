@@ -11,6 +11,11 @@ and BatchNorms are folded once per chain for every timestep.
 The int8 variants (``use_int8_eps``, ``use_int8_pallas``, ``pallas_fuse_ends``,
 ``use_int8_encode``) keep that layout: the JAX package folds the trials into
 rows only for ``use_int8_pallas``, so only its noise layout differs there.
+
+On a ``mesh`` (``parallel/``) the model holds this rank's member rows and
+the chain runs them on its batch rows (the whole batch where it does not
+tile 'data'), with its slice of the whole draws; the samples come back
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ladine_tpu_torch.kernels.int8_linear import int8_eps_pallas
 from ladine_tpu_torch.models.conditional import ConditionalModel
 from ladine_tpu_torch.ops.diffusion import ddim_sample_loop, p_sample_loop
 from ladine_tpu_torch.ops.schedules import DiffusionSchedule
+from ladine_tpu_torch.parallel.mesh import sharded_samples
 
 
 def nested_ensemble_sample(
@@ -46,6 +52,7 @@ def nested_ensemble_sample(
     qmember=None,
     qenc=None,
     sampler_table=None,
+    mesh=None,
 ) -> torch.Tensor:
     """All members' MC samples in one chain: (M, mc_trials, B, y_dim).
 
@@ -69,7 +76,20 @@ def nested_ensemble_sample(
         sampler_table: the step coefficients (``ops.diffusion``'s
             ``ancestral_table``, or ``ddim_table`` of ``tau`` and ``eta``);
             computed in the call when None.
+        mesh: ``model`` (and ``qmember``, ``qenc``) hold this rank's
+            member rows; ``x_flat``, ``y0_hat_members`` and ``noise`` are
+            whole, and so are the samples returned on every rank.
     """
+    if mesh is not None:
+        big_m, b, c = y0_hat_members.shape
+        n_draws = sched.num_timesteps if tau is None else len(tau)
+        if noise is None:
+            noise = torch.randn((n_draws, big_m, mc_trials, b, c), generator=generator, device=x_flat.device)
+        return sharded_samples(mesh, noise.reshape(n_draws, big_m, mc_trials, b, c), lambda rows, cols, z: (
+            nested_ensemble_sample(
+                model, x_flat[cols], y0_hat_members[rows, cols], sched, mc_trials, tau, eta, noise_prior, noise=z,
+                use_int8_eps=use_int8_eps, use_int8_encode=use_int8_encode, use_int8_pallas=use_int8_pallas,
+                pallas_fuse_ends=pallas_fuse_ends, qmember=qmember, qenc=qenc, sampler_table=sampler_table)))
     m, b, c = y0_hat_members.shape
     k = mc_trials
     # f's dtype is the dtype the int8 paths store their hidden rows in, as in

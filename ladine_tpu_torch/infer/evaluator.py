@@ -21,6 +21,16 @@ afterwards is a reweighting (``infer/calibrate.py``).
 Randomness: per batch, the generator gives three streams, one each for the
 corruptions, the attack's random start and the sampler's draws. The
 variables of the JAX signatures are dropped: the modules hold their weights.
+
+On a ``mesh`` (``parallel/``), the counterpart of the JAX pipeline's
+``out_shardings=P("member", None, "data")``: every rank takes the whole
+batch and the same generator, corrupts the whole batch (cheap), attacks its
+rows of it from its slice of the whole random start and gathers the
+adversarial batch, then samples its member rows on its batch rows with its
+slice of the whole draws; the samples come back whole (M, K, B, C) on every
+rank. A batch that does not tile 'data' (a tail) is attacked and sampled
+whole on every rank. A model that arrives whole is cut to the rank's member
+rows once, when the pipeline is made.
 """
 
 from __future__ import annotations
@@ -33,11 +43,11 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from ladine_tpu_torch.attacks import make_attack
+from ladine_tpu_torch.attacks import make_attack, random_start
 from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.infer.graphs import GraphCache
 from ladine_tpu_torch.infer.program import ServingProgram
-from ladine_tpu_torch.infer.serve import _head_indices, _int8_forms
+from ladine_tpu_torch.infer.serve import _head_indices, _int8_forms, select_members
 from ladine_tpu_torch.metrics.classification import (
     accuracy_topk,
     brier,
@@ -53,6 +63,13 @@ from ladine_tpu_torch.models.guidance import SEViTGuidance
 from ladine_tpu_torch.ops.corruptions import apply_corruptions
 from ladine_tpu_torch.ops.diffusion import ddim_timesteps
 from ladine_tpu_torch.ops.schedules import DiffusionSchedule
+from ladine_tpu_torch.parallel.mesh import (
+    data_slice,
+    gather_data,
+    member_slice,
+    sharded_samples,
+    tiles_data,
+)
 
 log = logging.getLogger("ladine_tpu_torch")
 
@@ -92,19 +109,6 @@ class EvalConfig:
     pallas_fuse_ends: bool = False  # with use_int8_pallas: the K5 kernels
 
 
-def _select_members(model: ConditionalModel, idx: Tuple[int, ...]) -> ConditionalModel:
-    """The stacked members ``idx`` of ``model``, as a model of their own
-    (``model`` itself when ``idx`` is every member in order)."""
-    if idx == tuple(range(model.members)):
-        return model
-    dtype = model.lin2.linear.weight.dtype
-    sub = model.like(len(idx), "meta", dtype)
-    state = model.state_dict()
-    index = torch.tensor(idx, device=next(iter(state.values())).device)
-    sub.load_state_dict({k: v.index_select(0, index) for k, v in state.items()}, assign=True)
-    return sub
-
-
 def _streams(generator: Optional[torch.Generator], device: torch.device, n: int = 3):
     """n generators on ``device`` seeded from ``generator`` (None: n times
     the device's default generator)."""
@@ -128,14 +132,14 @@ class EvalPipeline:
     """
 
     def __init__(self, guidance: SEViTGuidance, model: ConditionalModel, sched: DiffusionSchedule,
-                 cfg: EvalConfig, device):
-        self.cfg, self.device = cfg, device
+                 cfg: EvalConfig, device, mesh=None):
+        self.cfg, self.device, self.mesh = cfg, device, mesh
         self.guidance = guidance.to(device)
         model = model.to(device)
         sched = sched.to(device)
         if cfg.selected_members is not None:
             needed = tuple(int(i) for i in cfg.selected_members)
-            model = _select_members(model, needed)
+            model = select_members(model, needed)
         elif cfg.head_indices is not None:
             needed = tuple(int(i) for i in cfg.head_indices)
         else:
@@ -143,6 +147,10 @@ class EvalPipeline:
         idx = _head_indices(needed, model.members, guidance.num_members + 1)
         tau = (ddim_timesteps(sched.num_timesteps, cfg.ddim_steps, cfg.skip_type).tolist()
                if cfg.ddim_steps else None)
+        self.members, rows = model.members, slice(None)
+        if mesh is not None:  # this rank's member rows alone, and their int8 forms
+            rows = member_slice(mesh, model.members)
+            model = select_members(model, rows)
         qmember, qenc, qheads = _int8_forms(guidance, model, idx, guidance.num_members, cfg.use_int8,
                                             cfg.use_int8_pallas, cfg.use_int8_encode, model.arch)
         self.program = ServingProgram(
@@ -150,7 +158,7 @@ class EvalPipeline:
             eta=cfg.ddim_eta, noise_prior=cfg.noise_prior,
             use_int8_eps=cfg.use_int8 and not cfg.use_int8_pallas,
             use_int8_pallas=cfg.use_int8_pallas, pallas_fuse_ends=cfg.pallas_fuse_ends,
-            qmember=qmember, qenc=qenc, qheads=qheads,
+            qmember=qmember, qenc=qenc, qheads=qheads, rows=rows,
         )
         self.graphs = (GraphCache(lambda x, z: (self.program.samples(x, z),), device)
                        if device.type == "cuda" else None)
@@ -184,10 +192,20 @@ class EvalPipeline:
                                   crop=cfg.crop, draws=draws.get("corrupt"))
         t0 = self._mark(seconds, "corrupt", t0)
         if self.attack is not None:
-            x, _ = self.attack(x, y, g_attack, draws.get("attack"))
+            x_init = draws.get("attack")
+            if self.mesh is None or not tiles_data(self.mesh, x.shape[0]):
+                x, _ = self.attack(x, y, g_attack, x_init)
+            else:
+                # this rank's rows, from its slice of the whole batch's start
+                if x_init is None:
+                    x_init = random_start(self.cfg.attack_name, x, self.cfg.attack_eps, g_attack)
+                cols = data_slice(self.mesh, x.shape[0])
+                adv, _ = self.attack(x[cols], y[cols], None, None if x_init is None else x_init[cols])
+                x = gather_data(adv, self.mesh)
         self._mark(seconds, "attack", t0)
         noise = draws.get("noise")
-        shape = self.program.noise_shape(x.shape[0])
+        n, _, k, b, c = self.program.noise_shape(x.shape[0])
+        shape = (n, self.members, k, b, c)
         if noise is None:
             noise = torch.randn(shape, generator=g_sample, device=dev, dtype=torch.float32)
         elif tuple(noise.shape) != shape:
@@ -200,10 +218,16 @@ class EvalPipeline:
         """The program's samples on the host: through the CUDA graph of the
         batch shape on the card (``eager=False``), else eagerly."""
         t0 = self._mark(seconds)
-        if self.graphs is not None and not eager:
-            (samples,) = self.graphs(images, noise)
+        def run(x, z):
+            if self.graphs is not None and not eager:
+                return self.graphs(x, z, on_device=self.mesh is not None)[0]
+            return self.program.samples(x, z)
+
+        if self.mesh is None:
+            samples = run(images, noise)
         else:
-            samples = self.program.samples(images, noise).cpu()
+            samples = sharded_samples(self.mesh, noise, lambda rows, cols, z: run(images[cols], z))
+        samples = samples.cpu()
         self._mark(seconds, "sample", t0)
         return samples.float()
 
@@ -218,12 +242,8 @@ def make_eval_pipeline(guidance: SEViTGuidance, model: ConditionalModel, sched: 
                        cfg: EvalConfig, mesh=None, device="cuda") -> EvalPipeline:
     """The per-batch evaluation function (:class:`EvalPipeline`) on
     ``device``: the modules and the schedule move there, the int8 forms the
-    config calls for are quantized once. ``mesh`` is not ported (ROADMAP
-    slice E item 16, ``parallel/``)."""
-    if mesh is not None:
-        raise NotImplementedError("the port's evaluator runs on one device: mesh= waits for "
-                                  "ROADMAP slice E item 16 (parallel/)")
-    return EvalPipeline(guidance, model, sched, cfg, resolve_device(device))
+    config calls for are quantized once. ``mesh``: the module docstring."""
+    return EvalPipeline(guidance, model, sched, cfg, resolve_device(device), mesh)
 
 
 def evaluate_ensemble(

@@ -13,8 +13,10 @@ replays the graph and copies the outputs to the host. The graphs of one
 cache share one memory pool. A failed capture raises: nothing falls back to
 an eager run.
 
-The static buffers are shared, so a lock serialises copy-in, replay and
-copy-out: concurrent callers (the HTTP server's threads, a
+The program holds no collective: on a mesh (``parallel/``) a rank replays
+its own program and gathers after it, on every backend (``gloo`` cannot be
+captured). The static buffers are shared, so a lock serialises copy-in,
+replay and copy-out: concurrent callers (the HTTP server's threads, a
 ``MicroBatcher``'s worker) each get their own outputs.
 
 ``kernels._build.launch_counts`` counts the wrappers' calls, and a replay
@@ -57,9 +59,10 @@ class GraphCache:
         self._lock = threading.Lock()
         self.capture_seconds: Dict[tuple, float] = {}  # warm-up + capture, by input shapes
 
-    def __call__(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def __call__(self, *inputs: torch.Tensor, on_device: bool = False) -> Tuple[torch.Tensor, ...]:
         """The program's outputs on ``inputs`` (host or device tensors), as
-        host tensors."""
+        host tensors, or ``on_device`` as copies on the card (for
+        collectives that run after the graph, ``parallel/``)."""
         key = tuple((tuple(t.shape), t.dtype) for t in inputs)
         with self._lock:
             g = self._graphs.get(key)
@@ -69,7 +72,7 @@ class GraphCache:
                 buf.copy_(t)
             g.graph.replay()
             _build.launch_counts.update(g.launches)
-            return tuple(o.cpu() for o in g.outputs)
+            return tuple(o.clone() if on_device else o.cpu() for o in g.outputs)
 
     def launches(self, *inputs: torch.Tensor) -> collections.Counter:
         """Each kernel's launches in one replay at these inputs' shapes."""

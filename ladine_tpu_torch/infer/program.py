@@ -34,15 +34,18 @@ class ServingProgram(nn.Module):
     ``infer.engine.nested_ensemble_sample``). ``qmember``, ``qenc`` and
     ``qheads`` are the resident int8 forms (``kernels/int8.py``), or None;
     they are held as buffers, as are the schedule and the step table. The
-    encoder runs int8 where ``qenc`` is given."""
+    encoder runs int8 where ``qenc`` is given. ``rows``: the members of the
+    heads ``idx`` that ``model`` holds (a rank's rows on a mesh,
+    ``parallel/``): every head is computed, as on one device, and these
+    condition the chain."""
 
     def __init__(self, guidance, model, sched: DiffusionSchedule, idx: Sequence[int], *,
                  temperature: float, mc_trials: int, tau: Optional[Sequence[int]], eta: float,
                  noise_prior: bool, use_int8_eps: bool, use_int8_pallas: bool,
-                 pallas_fuse_ends: bool, qmember=None, qenc=None, qheads=None):
+                 pallas_fuse_ends: bool, qmember=None, qenc=None, qheads=None, rows: slice = slice(None)):
         super().__init__()
         self.guidance, self.model = guidance, model
-        self.idx, self.tau = tuple(idx), tau
+        self.idx, self.tau, self.rows = tuple(idx), tau, rows
         self.temperature, self.mc_trials, self.eta, self.noise_prior = temperature, mc_trials, eta, noise_prior
         self.use_int8_eps, self.use_int8_encode = use_int8_eps, qenc is not None
         self.use_int8_pallas, self.pallas_fuse_ends = use_int8_pallas, pallas_fuse_ends
@@ -95,7 +98,7 @@ class ServingProgram(nn.Module):
             heads = int8_mapping_heads(g, taps, self.idx, qheads)
         else:
             heads = g.heads_subset(images, self.idx)
-        y0_hat = torch.softmax(heads.float(), dim=-1)
+        y0_hat = torch.softmax(heads.float(), dim=-1)[self.rows]
         sched = DiffusionSchedule(*(getattr(self, f"sched_{n}") for n in DiffusionSchedule._fields))
         fields = PSampleCoeffs._fields if self.tau is None else DDIMCoeffs._fields
         table = (PSampleCoeffs if self.tau is None else DDIMCoeffs)(
@@ -112,16 +115,22 @@ class ServingProgram(nn.Module):
         )
 
     def forward(self, images: torch.Tensor, noise: torch.Tensor):
-        samples = self.samples(images, noise)
-        m, k, b, c = samples.shape
-        flat = samples.reshape(m * k, b, c)
-        probs = convert_to_prob(flat, self.temperature).mean(dim=0)
-        mv = majority_vote(flat)
-        # linear interpolation, as jnp.quantile
-        lo, hi = torch.quantile(flat, 0.025, dim=0), torch.quantile(flat, 0.975, dim=0)
-        piw = (hi - lo).gather(1, mv[:, None])[:, 0]
-        var = flat.var(dim=0, correction=1).gather(1, mv[:, None])[:, 0]
-        return probs, mv, piw, var
+        return aggregate(self.samples(images, noise), self.temperature)
+
+
+def aggregate(samples: torch.Tensor, temperature: float):
+    """(M, K, B, C) samples -> (probs, majority_vote, piw, mc_variance), each
+    batch-leading: the mean tempered probability, the vote, and the 95 %
+    interval width and variance of the voted class."""
+    m, k, b, c = samples.shape
+    flat = samples.reshape(m * k, b, c)
+    probs = convert_to_prob(flat, temperature).mean(dim=0)
+    mv = majority_vote(flat)
+    # linear interpolation, as jnp.quantile
+    lo, hi = torch.quantile(flat, 0.025, dim=0), torch.quantile(flat, 0.975, dim=0)
+    piw = (hi - lo).gather(1, mv[:, None])[:, 0]
+    var = flat.var(dim=0, correction=1).gather(1, mv[:, None])[:, 0]
+    return probs, mv, piw, var
 
 
 class WeightsAsInputs(nn.Module):

@@ -21,6 +21,17 @@ card the first call at a batch size captures that program as a CUDA graph,
 and every call replays it (``infer/graphs.py``): the port's counterpart of
 the JAX package's one compiled program per batch shape.
 
+With a ``mesh`` (``parallel/``; not saved, pass ``load(..., mesh=)``) each
+rank keeps its member rows of the ensemble alone (``model`` becomes them,
+and the int8 forms are theirs) and serves them on its rows of the request
+batch, with its slice of the whole draws, through its own program (one CUDA
+graph per local batch shape); the samples are gathered outside the graph,
+and every rank returns the whole outputs. Save and export from a predictor
+without a mesh. Every rank of the mesh calls
+``predict`` with the same images, and as often. A batch that does not tile
+the data axis runs whole on every rank of a member row, as the JAX
+Predictor runs it unsharded.
+
 ``save``/``load`` keep a predictor as a directory (``utils/checkpoint.py``):
 the float weights, the schedule and the settings, with the JAX package's
 ``ladine_meta.json``. ``export_serving`` writes an AOT bundle that
@@ -41,6 +52,7 @@ import torch
 
 from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.infer.exported import (
+    OUTPUTS,
     WEIGHTS,
     call_seed,
     program_path,
@@ -49,12 +61,13 @@ from ladine_tpu_torch.infer.exported import (
     run_request,
 )
 from ladine_tpu_torch.infer.graphs import GraphCache
-from ladine_tpu_torch.infer.program import ServingProgram, WeightsAsInputs
+from ladine_tpu_torch.infer.program import ServingProgram, WeightsAsInputs, aggregate
 from ladine_tpu_torch.kernels.int8 import quantize_encoder, quantize_mapping_heads, quantize_member
 from ladine_tpu_torch.models.conditional import ConditionalModel
 from ladine_tpu_torch.models.guidance import SEViTGuidance
 from ladine_tpu_torch.ops.diffusion import ddim_timesteps
 from ladine_tpu_torch.ops.schedules import DiffusionSchedule
+from ladine_tpu_torch.parallel.mesh import member_slice, sharded_samples
 from ladine_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 # The JAX package's named operating points: "parity" is the full ancestral
@@ -98,6 +111,37 @@ def _int8_forms(guidance, members, idx, num_members: int, use_int8: bool, use_in
     return qmember, qenc, quantize_mapping_heads(guidance, idx) if int8_heads else None
 
 
+def select_members(model: ConditionalModel, rows) -> ConditionalModel:
+    """The stacked members ``rows`` (a slice or indices) of ``model``, as a
+    model of their own sharing no storage with it (``model`` itself where
+    ``rows`` is every member in order)."""
+    idx = tuple(range(model.members))[rows] if isinstance(rows, slice) else tuple(int(i) for i in rows)
+    if idx == tuple(range(model.members)):
+        return model
+    sub = model.like(len(idx), "meta", model.lin2.linear.weight.dtype)
+    state = model.state_dict()
+    index = torch.tensor(idx, device=next(iter(state.values())).device)
+    sub.load_state_dict({k: v.index_select(0, index) for k, v in state.items()}, assign=True)
+    return sub
+
+
+def member_rows(forms, rows: slice):
+    """The member rows of the resident int8 forms of :func:`_int8_forms`:
+    (qmember, qenc, qheads), each stacked member-first but the guidance's
+    heads. Copies that keep the K-contiguous int8 layout (a clone keeps the
+    strides of a dense slice), so the whole forms can be freed."""
+    def own(t):
+        part = t[rows]
+        return t if part.shape[0] == t.shape[0] else part.clone()
+
+    qmember, qenc, qheads = forms
+    if qmember is not None:
+        qmember = {k: tuple(own(t) for t in v) for k, v in qmember.items()}
+    if qenc is not None:
+        qenc = tuple(own(t) for t in qenc)
+    return qmember, qenc, qheads
+
+
 @dataclasses.dataclass
 class Predictor:
     """A predictor built from modules quantizes its int8 forms from what the
@@ -126,6 +170,9 @@ class Predictor:
     # 0..n_stacked-1
     head_indices: Optional[tuple] = None
     device: Any = "cuda"
+    # a ('member', 'data') DeviceMesh (parallel/): this rank keeps and
+    # serves its member rows on its batch rows. Not saved; Predictor.load(mesh=)
+    mesh: Any = None
     # the int8 forms load() quantized from the artifact (_int8_forms); None:
     # quantize the modules here
     _int8: Optional[tuple] = dataclasses.field(default=None, repr=False)
@@ -141,11 +188,17 @@ class Predictor:
             else None
         )
         self._idx = _head_indices(self.head_indices, self.model.members, self.guidance.num_members + 1)
+        self._members, rows, forms = self.model.members, slice(None), self._int8
+        if self.mesh is not None:
+            # this rank keeps its member rows alone: the model becomes them
+            rows = member_slice(self.mesh, self._members)
+            self.model = select_members(self.model, rows)
+            forms = None if forms is None else member_rows(forms, rows)
         # The resident int8 weights, quantized once (member by member, never
         # in place).
-        forms = self._int8 if self._int8 is not None else _int8_forms(
-            self.guidance, self.model, self._idx, self.guidance.num_members,
-            self.use_int8, self.use_int8_pallas, self.use_int8_encode, self.model.arch)
+        if forms is None:
+            forms = _int8_forms(self.guidance, self.model, self._idx, self.guidance.num_members,
+                                self.use_int8, self.use_int8_pallas, self.use_int8_encode, self.model.arch)
         self._int8 = None
         self._qmember, self._qenc, self._qheads = forms
         self._program = ServingProgram(
@@ -153,9 +206,10 @@ class Predictor:
             mc_trials=self.mc_trials, tau=self._tau, eta=self.ddim_eta, noise_prior=self.noise_prior,
             use_int8_eps=self.use_int8 and not self.use_int8_pallas,
             use_int8_pallas=self.use_int8_pallas, pallas_fuse_ends=self.pallas_fuse_ends,
-            qmember=self._qmember, qenc=self._qenc, qheads=self._qheads,
+            qmember=self._qmember, qenc=self._qenc, qheads=self._qheads, rows=rows,
         )
-        self._graphs = GraphCache(self._program, self.device) if self.device.type == "cuda" else None
+        program = self._program if self.mesh is None else (lambda x, z: (self._program.samples(x, z),))
+        self._graphs = GraphCache(program, self.device) if self.device.type == "cuda" else None
         # itertools.count is atomic under the GIL: concurrent predict() calls
         # in a threaded server never share a seed
         self._counter = itertools.count()
@@ -186,8 +240,14 @@ class Predictor:
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(call_seed(self.seed, next(self._counter)))
-        z = request_noise(self._program.noise_shape(x.shape[0]), self.device, generator, noise)
-        return run_request(self._program, self._graphs, self.device, x, z)
+        if self.mesh is None:
+            z = request_noise(self._program.noise_shape(x.shape[0]), self.device, generator, noise)
+            return run_request(self._program, self._graphs, self.device, x, z)
+        n, _, k, b, c = self._program.noise_shape(x.shape[0])
+        z = request_noise((n, self._members, k, b, c), self.device, generator, noise)
+        run = self._program.samples if self._graphs is None else (lambda *a: self._graphs(*a, on_device=True)[0])
+        samples = sharded_samples(self.mesh, z, lambda rows, cols, z: run(x[cols].to(self.device), z))
+        return {k: v.cpu().numpy() for k, v in zip(OUTPUTS, aggregate(samples, self.temperature))}
 
     def export_serving(self, path: str, batch_sizes=(70,)) -> Dict[int, float]:
         """AOT deployment bundle: the serving program exported with
@@ -202,7 +262,12 @@ class Predictor:
         Fixed shapes by design; to sit behind a ``MicroBatcher`` pass
         ``batch_sizes=MicroBatcher.bucket_sizes(cap)``. Locked to the device
         type it is exported on, as the JAX bundle is platform-locked: export
-        on the card you serve on. Returns the seconds of each export."""
+        on the card you serve on. Returns the seconds of each export.
+        A mesh predictor refuses: a bundle is one device's program, and
+        mesh serving loads a ``Predictor`` with ``mesh=``."""
+        if self.mesh is not None:
+            raise ValueError("export_serving exports the unsharded program; build the bundle from a "
+                             "Predictor without mesh= (mesh serving loads a Predictor with mesh= instead)")
         s = self.guidance.img_size
         weights = self._program.run_weights()
         wrapped = WeightsAsInputs(self._program)
@@ -253,7 +318,11 @@ class Predictor:
         copies), the schedule tensors verbatim, and ``ladine_meta.json``
         with the JAX package's keys and values (settings, ``head_indices``,
         the compute dtype and the geometry). ``seed`` is not saved, as in
-        the JAX package."""
+        the JAX package. A mesh predictor holds its rank's members alone,
+        and refuses."""
+        if self.mesh is not None:
+            raise ValueError("a Predictor with mesh= holds this rank's members alone: save the one built "
+                             "without mesh=")
         g, m = self.guidance, self.model
         meta = {
             "kind": "predictor",
@@ -295,8 +364,9 @@ class Predictor:
 
     @classmethod
     def load(cls, path: str, preset: Optional[str] = None, dtype: Any = "artifact",
-             device="cuda", **overrides) -> "Predictor":
-        """A predictor saved by :meth:`save`, on ``device``. ``preset`` applies
+             device="cuda", mesh=None, **overrides) -> "Predictor":
+        """A predictor saved by :meth:`save`, on ``device`` (``mesh``: served
+        over a mesh, the class docstring). ``preset`` applies
         a named operating point (:data:`PRESETS`) over the saved settings;
         ``overrides`` win over both. ``dtype``: the compute dtype of the
         rebuilt modules; ``"artifact"`` restores the saved one (an artifact
@@ -365,7 +435,7 @@ class Predictor:
                             kwargs["use_int8"], kwargs["use_int8_pallas"], kwargs["use_int8_encode"], model.arch)
         _assign(guidance, tree.pop("guidance"))
         _assign(model, tree.pop("members"))
-        return cls(guidance=guidance, model=model, sched=sched, device=dev, _int8=forms, **kwargs)
+        return cls(guidance=guidance, model=model, sched=sched, device=dev, mesh=mesh, _int8=forms, **kwargs)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

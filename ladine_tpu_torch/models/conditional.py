@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ladine_tpu_torch.device import resolve_device
 from ladine_tpu_torch.kernels.fused_eps import fused_eps
 from ladine_tpu_torch.models.encoders import ARCHS, image_shape_of, make_encoder, pop_batch_stats
+from ladine_tpu_torch.parallel.mesh import batch_moments
 
 _BN_EPS = 1e-5  # torch BatchNorm1d default
 # flax's momentum weights the OLD running value (torch's momentum 0.1 the new)
@@ -96,10 +97,12 @@ class StackedBatchNorm(nn.Module):
         batch axis of (M, B, N), in float32 (or float64 where the layer is), by the fast variance
         ``E[x^2] - E[x]^2`` clipped at 0 (biased), both to normalize and for
         the running update ``0.9 * running + 0.1 * batch``. Returns the
-        float32 output and the new (running_mean, running_var), detached."""
+        float32 output and the new (running_mean, running_var), detached.
+        Inside ``parallel.mesh.global_batch`` the statistics are those of
+        the global batch."""
         xf = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        mean = xf.mean(dim=1, keepdim=True)
-        var = torch.clamp_min((xf * xf).mean(dim=1, keepdim=True) - mean * mean, 0.0)
+        mean, mean_sq = batch_moments(xf, 1, keepdim=True)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         y = (xf - mean) * (torch.rsqrt(var + _BN_EPS) * self.weight.unsqueeze(-2))
         y = y + self.bias.unsqueeze(-2)
         m = _BN_MOMENTUM

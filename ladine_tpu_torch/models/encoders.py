@@ -30,6 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ladine_tpu_torch.parallel.mesh import batch_moments
+
 _BN_EPS = 1e-5  # torch BatchNorm default, the reference's
 _BN_MOMENTUM = 0.9  # flax's: the weight of the OLD running value
 _LN_EPS = 1e-6  # flax LayerNorm default
@@ -39,7 +41,8 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channel axis, dim 1 of (B, C) or
     (B, C, H, W). Parameters and statistics are float32; the output is
     float32 (flax promotes), or ``dtype`` where one is given (flax's
-    ``BatchNorm(dtype=...)``)."""
+    ``BatchNorm(dtype=...)``). In train mode inside
+    ``parallel.mesh.global_batch`` the statistics are the global batch's."""
 
     def __init__(self, features: int, eps: float = _BN_EPS, device=None, dtype=None):
         super().__init__()
@@ -56,8 +59,8 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if train:
             dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            mean, mean_sq = batch_moments(xf, dims)
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             m = _BN_MOMENTUM
             self.batch_stats = (m * self.running_mean + (1 - m) * mean.detach(),
                                 m * self.running_var + (1 - m) * var.detach())

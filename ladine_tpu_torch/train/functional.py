@@ -56,18 +56,22 @@ def member_seeds(generator: torch.Generator, n: int) -> List[int]:
     return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
 
 
-def stack_init(make: Callable[[torch.Generator], nn.Module], seeds: List[int], device) -> Tensors:
+def stack_init(make: Callable[[torch.Generator], nn.Module], seeds: List[int], device,
+               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> Tensors:
     """Float32 state-dict tensors of len(seeds) modules stacked on a leading
     axis. ``make(generator)`` builds and initializes one float32 module on
     ``device`` (a member-stacked module of one member, whose axis becomes a
     row of the stack, or a plain module); each is copied into the stack and
-    freed before the next, so the stack is never held twice."""
+    freed before the next, so the stack is never held twice. ``cut(name,
+    row)`` keeps a part of each row (a rank's columns on a mesh)."""
     out: Tensors = {}
     for i, seed in enumerate(seeds):
         one = make(torch.Generator(device=device).manual_seed(seed))
         member_axis = getattr(one, "members", None) == 1
         for k, v in one.state_dict().items():
             rows = v if member_axis else v.unsqueeze(0)
+            if cut is not None:
+                rows = cut(k, rows)
             if k not in out:
                 out[k] = torch.empty((len(seeds),) + rows.shape[1:], dtype=rows.dtype, device=device)
             out[k][i:i + 1].copy_(rows)

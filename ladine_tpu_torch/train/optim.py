@@ -31,11 +31,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from ladine_tpu_torch.train.lowmem import CHUNK, bf16_stochastic_round
+from ladine_tpu_torch.parallel.mesh import leaf_window, reduce_data
+from ladine_tpu_torch.train.lowmem import bf16_stochastic_round, column_chunks, skip_bits
 
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -90,13 +91,6 @@ def cosine_warm_restarts(base_lr: float, first_cycle_epochs: int, steps_per_epoc
     return schedule
 
 
-def _columns(view: torch.Tensor) -> Iterator[slice]:
-    """Column slices of a (M, n) view of about ``CHUNK`` elements each."""
-    width = max(1, CHUNK // view.shape[0])
-    for j in range(0, view.shape[1], width):
-        yield slice(j, j + width)
-
-
 @dataclass(frozen=True)
 class Optimizer:
     """One of ``make_optimizer``'s chains: ``init`` makes its state,
@@ -135,27 +129,39 @@ class Optimizer:
             return torch.as_tensor(self.lr(count), dtype=torch.float32, device=count.device)
         return torch.full(count.shape, self.lr, dtype=torch.float32, device=count.device)
 
-    def clip_scale(self, grads: Tensors, members: int) -> Optional[torch.Tensor]:
+    def clip_scale(self, grads: Tensors, members: int, mesh=None, fsdp=()) -> Optional[torch.Tensor]:
         """Each member's factor (members, 1): 1 where its global norm is
-        below ``grad_clip``, else ``grad_clip / norm``."""
+        below ``grad_clip``, else ``grad_clip / norm``. On a ``mesh`` the
+        squares of the leaves in ``fsdp`` (this rank's columns of them) are
+        summed over 'data' before the root."""
         if self.grad_clip is None:
             return None
-        sq = sum(torch.linalg.vector_norm(g.reshape(members, -1).float(), dim=1) ** 2
-                 for g in grads.values())
-        norm = torch.sqrt(sq)
+
+        def sq(names):
+            return sum((torch.linalg.vector_norm(grads[k].reshape(members, -1).float(), dim=1) ** 2
+                        for k in names), torch.zeros(members, device=next(iter(grads.values())).device))
+
+        total = sq([k for k in grads if k not in fsdp])
+        if mesh is not None and fsdp:
+            total = total + reduce_data(sq([k for k in grads if k in fsdp]), mesh)
+        norm = torch.sqrt(total)
         return torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm).unsqueeze(1)
 
     @torch.no_grad()
     def step(self, params: Tensors, grads: Tensors, state: dict,
-             generator: Optional[torch.Generator] = None) -> None:
+             generator: Optional[torch.Generator] = None, mesh=None, fsdp=()) -> None:
         """One update, in place. ``generator`` draws the stochastic
-        rounding of ``lowmem`` state (required then)."""
+        rounding of ``lowmem`` state (required then). On a ``mesh``,
+        ``params``, ``grads`` and ``state`` are this rank's member rows, and
+        of the leaves named in ``fsdp`` its columns; ``grads`` are already
+        summed over 'data'. The update and its bits are those of one
+        process (:func:`~ladine_tpu_torch.train.lowmem.column_chunks`)."""
         if self.lowmem and generator is None:
             raise ValueError("a lowmem optimizer needs a generator for its stochastic rounding")
         count = state["count"]
         members = max(count.numel(), 1)
         col = lambda v: v.reshape(members, 1)  # noqa: E731
-        scale = self.clip_scale(grads, members)
+        scale = self.clip_scale(grads, members, mesh, fsdp)
         lr = col(self.learning_rate(count))
         n = (count + 1).float()
         bc1, bc2 = col(1 - torch.pow(self.b1, n)), col(1 - torch.pow(self.b2, n))
@@ -163,12 +169,17 @@ class Optimizer:
         for name, p in params.items():
             pv, gv = p.view(members, -1), grads[name].reshape(members, -1)
             sv = {s: state[s][name].view(members, -1) for s in slots}
-            for sl in _columns(pv):
-                self._update(pv[:, sl], gv[:, sl], {s: v[:, sl] for s, v in sv.items()},
-                             scale, lr, bc1, bc2, generator)
+            for shape, mine, index in column_chunks(pv.shape, leaf_window(pv, mesh, name in fsdp)):
+                if mine is None:
+                    if self.lowmem:
+                        for _ in ("mu", "nu"):
+                            skip_bits(shape, generator, p.device)
+                    continue
+                self._update(pv[:, mine], gv[:, mine], {s: v[:, mine] for s, v in sv.items()},
+                             scale, lr, bc1, bc2, generator, (shape, index))
         count.add_(1)
 
-    def _update(self, p, g, s, scale, lr, bc1, bc2, generator) -> None:
+    def _update(self, p, g, s, scale, lr, bc1, bc2, generator, window) -> None:
         g = g.float()
         if scale is not None:
             g = g * scale
@@ -180,8 +191,8 @@ class Optimizer:
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if self.name == "AdamW":
                 u = u + self.weight_decay * p
-            self._store(s["mu"], m, generator)
-            self._store(s["nu"], v, generator)
+            self._store(s["mu"], m, generator, window)
+            self._store(s["nu"], v, generator, window)
         elif self.name == "RMSProp":
             v = (1 - _RMS_DECAY) * (g * g) + _RMS_DECAY * s["nu"]
             u = g * torch.rsqrt(v + _RMS_EPS)
@@ -191,8 +202,8 @@ class Optimizer:
             s["trace"].copy_(u)
         p.add_(u * -lr)
 
-    def _store(self, slot, value, generator) -> None:
-        slot.copy_(bf16_stochastic_round(value, generator) if self.lowmem else value)
+    def _store(self, slot, value, generator, window) -> None:
+        slot.copy_(bf16_stochastic_round(value, generator, window) if self.lowmem else value)
 
 
 def make_optimizer(

@@ -16,6 +16,11 @@ member states marked ``meta["ema_init"] = "zero"`` (the debiased
 accumulator ``train/ema.py::ema_params_from_ckpt`` reads). A light
 checkpoint keeps only what evaluation reads (params, EMA, batch statistics
 and the update counts), its float tensors in a compute dtype.
+
+A state sharded over a mesh (``parallel/``) is gathered whole and written
+by rank 0 alone, in the one-process format, while the other ranks wait;
+every rank reads a checkpoint and keeps its part. So a checkpoint written
+on a mesh loads in one process, and the other way round.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ladine_tpu_torch.parallel.mesh import gather_tree, is_writer, mesh_barrier, shard_tree
 
 TREE_FILE = "tree.pt"
 META_FILE = "ladine_meta.json"
@@ -82,13 +89,19 @@ def _cast(tensors: Dict[str, torch.Tensor], dtype: Optional[torch.dtype]) -> Dic
 
 
 def save_train_state(path: str, state: Any, metadata: Optional[Dict] = None, guidance: Any = None,
-                     light: bool = False, light_dtype: Optional[torch.dtype] = None) -> Dict:
+                     light: bool = False, light_dtype: Optional[torch.dtype] = None,
+                     mesh=None, fsdp=()) -> Dict:
     """Write a train state (its fields by name) and ``guidance`` (a state
     dict, or None) into the checkpoint directory ``path``. Member states
     get ``meta["ema_init"] = "zero"`` and ``meta["lowmem"]`` (bfloat16
     EMA), then ``metadata`` wins. ``light`` (member states): params, EMA,
     batch statistics and steps only, float tensors cast to ``light_dtype``
-    (None: as they are). Returns the metadata written."""
+    (None: as they are). On a ``mesh`` (``state`` this rank's part,
+    ``fsdp`` its data-sharded leaves) every rank calls this: the state is
+    gathered, rank 0 writes, and the others wait for it. Returns the
+    metadata written."""
+    if mesh is not None:
+        state = gather_tree(state, mesh, fsdp)
     fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     meta: Dict[str, Any] = {"light": bool(light)}
     if "ema" in fields:
@@ -101,14 +114,19 @@ def save_train_state(path: str, state: Any, metadata: Optional[Dict] = None, gui
         fields = {k: fields[k] for k in _LIGHT_FIELDS}
         fields["params"] = _cast(fields["params"], light_dtype)
         fields["ema"] = _cast(fields["ema"], light_dtype)
-    save_checkpoint(path, {"states": fields, "guidance": guidance}, meta)
+    if is_writer():
+        save_checkpoint(path, {"states": fields, "guidance": guidance}, meta)
+    if mesh is not None:
+        mesh_barrier(mesh)
     return meta
 
 
-def load_train_state(path: str, device: Any = "cpu") -> Tuple[Any, Any, Dict]:
+def load_train_state(path: str, device: Any = "cpu", mesh=None, fsdp=()) -> Tuple[Any, Any, Dict]:
     """(states, guidance, metadata) of a :func:`save_train_state`
     checkpoint, tensors on ``device``: a ``MemberTrainState`` or
-    ``TrainState``, or for a light checkpoint the dict of its fields."""
+    ``TrainState``, or for a light checkpoint the dict of its fields. On a
+    ``mesh``: the member states' part of this rank (``fsdp`` as in
+    :func:`save_train_state`); the guidance stays whole."""
     from ladine_tpu_torch.train import MemberTrainState, TrainState
 
     tree, meta = load_checkpoint(path, map_location=device)
@@ -121,4 +139,6 @@ def load_train_state(path: str, device: Any = "cpu") -> Tuple[Any, Any, Dict]:
         states = MemberTrainState(**st)
     else:
         states = TrainState(**st)
+    if mesh is not None:
+        states = shard_tree(states, mesh, fsdp)
     return states, tree.get("guidance"), meta

@@ -670,3 +670,21 @@ def test_capture_after_a_dropped_predictor_in_a_reference_cycle(cuda):
         new = _small_predictor(cuda, **PROGRAMS["serving-k5"])
         out = new.predict(images)
         assert np.isfinite(out["probs"]).all()
+
+
+@pytest.mark.cuda
+def test_parity_request_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """A (member 1, data 2) mesh of two ``gloo`` ranks on the one card, each
+    serving 2 of the batch's 4 rows through its own CUDA graph: the outputs
+    equal the one-process request of the same seed (votes exactly; probs,
+    PIW and variance within rtol 1e-4, atol 1e-5), and each rank's replay
+    launches K1 three times a step and K3 once a ViT block it runs."""
+    import torch_mesh as TM
+
+    one = TM.cuda_parity_case()  # builds the kernels before the ranks start
+    got = TM.run_world(TM.cuda_parity_world, 2, tmp_path)
+    np.testing.assert_array_equal(got["out"]["majority_vote"], one["out"]["majority_vote"])
+    for k in ("probs", "piw", "mc_variance"):
+        np.testing.assert_allclose(got["out"][k], one["out"][k], rtol=1e-4, atol=1e-5, err_msg=k)
+    assert got["launches"] == one["launches"]
+    assert got["launches"]["fused_linear_act"] == 3 * TM.T_STEPS

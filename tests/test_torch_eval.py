@@ -125,10 +125,24 @@ def test_bf16_pipeline_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
 
 
+class _Mesh2x1:
+    """A (member 2, data 1) mesh as ``parallel/mesh.py`` reads one, rank 0."""
+
+    mesh_dim_names = ("member", "data")
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def size(self, dim):
+        return (2, 1)[dim]
+
+
 def test_pipeline_refuses_a_mesh_and_needs_cuda_unless_asked_for_cpu(parts, monkeypatch):
+    """A mesh whose member axis does not tile the members is refused (the
+    sharded pipeline itself: ``tests/test_torch_parallel_infer.py``)."""
     _, tsched = _schedules()
-    with pytest.raises(NotImplementedError, match="slice E item 16"):
-        tev.make_eval_pipeline(parts["g"], parts["m"], tsched, tev.EvalConfig(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="do not tile the member axis of size 2"):
+        tev.make_eval_pipeline(parts["g"], parts["m"], tsched, tev.EvalConfig(), mesh=_Mesh2x1(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tev.make_eval_pipeline(parts["g"], parts["m"], tsched, tev.EvalConfig())

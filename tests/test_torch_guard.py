@@ -42,7 +42,8 @@ def _sources():
     return files
 
 
-@pytest.mark.parametrize("package", ["train", "data", "examples", "models", "kernels", "infer", "utils", "cli"])
+@pytest.mark.parametrize("package", ["train", "data", "examples", "models", "kernels", "infer", "utils", "cli",
+                                     "parallel"])
 def test_guard_reads_every_subpackage(package):
     """The training, data, example and command-line subpackages are read
     like the rest."""
