@@ -191,6 +191,24 @@ Phases, each fatal on failure (no failure is caught):
    atol 2.1e-3 against one process. ms a step and peak GiB a rank. Then,
    not counted, K1, K3, K4, K5a and K5b against their plain versions at a
    rank's shapes (``check_phase11_shapes``).
+12. The 10-class real-data path at ``configs/digits.yml``'s widths (32 px,
+   patch 8, embed 48 over 4 heads of D = 12, depth 5, feature = hidden =
+   64, T = 100, 5 members, 10 classes, MC 10) on the committed digits
+   corpus, in ``_smoke_digits/`` beside the script (gitignored, deleted at
+   the end): (a) ``examples/run_digits.py`` with its epochs cut to
+   ``DIGITS_EPOCHS`` (stage 1 and stage 3; widths untouched), each step's
+   launches exact (``digits_step_launches``), the calibration, the clean,
+   EMA, FGSM and noise rows, the clean majority-vote accuracy at or above
+   ``DIGITS_MV_BAR``; (b) the same members at ``serving``, +
+   ``use_int8_pallas`` (K4) and + ``pallas_fuse_ends`` (K5a, K5b at C =
+   10) through ``cli.main --test --suite``, each row's majority-vote
+   accuracy within ``DIGITS_INT8_POINTS`` of the float row's; (c) the bf16
+   path: a bf16 ``Predictor`` from (a)'s checkpoints (K1's lin1 at K = 20
+   with the float32 gate, K3 at D = 12), graphed against eager at DDIM-25
+   (exactly) and ``serving`` + K5 (rtol 1e-4), a bf16 ViT forward against
+   the float32 one, one bf16 member step at 10 classes. Then, not counted,
+   every kernel at the digits shapes against its plain version, with its
+   time and bound (``check_phase12_shapes``).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -441,7 +459,7 @@ def check_int8_kernels():
     M, R, F_, C = 5, 20 * BATCH, 4096, 2
     # the kernels and their plain versions pick the same int8 codes and sum
     # them exactly; h differs where softplus rounds apart (fp32 rounding);
-    # K5b's lin4 sums in fp32 atomics in no fixed order
+    # K5b's lin4 sums its column tiles in fp32 atomics in no fixed order
     tol = 1e-3
 
     def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
@@ -669,10 +687,12 @@ def eager_request(pred, images, seed: int):
         return {k: o.cpu().numpy() for k, o in zip(OUTPUTS, outs)}
 
 
-# K5b's lin4 sums in fp32 atomics in no fixed order, so two eager runs of a
-# K5 request already differ (~1e-7 relative in one eps), and the 50-step
-# chain carries that to the outputs: a K5 request is held to another within
-# rtol 1e-4 (atol 1e-6) and equal votes, beside the spread of two eager runs.
+# K5b's lin4 adds its column tiles' sums with fp32 atomics in no fixed order
+# (32 tiles at full width; one, so a fixed order, at N <= 128), so two eager
+# runs of a full-width K5 request already differ (~1e-7 relative in one
+# eps), and the 50-step chain carries that to the outputs: a K5 request is
+# held to another within rtol 1e-4 (atol 1e-6) and equal votes, beside the
+# spread of two eager runs.
 K5_RTOL = 1e-4
 
 
@@ -2430,6 +2450,349 @@ def check_phase11_shapes(entries):
          K.int8_eps_l34_plain(*args), 1e-3)
 
 
+# Phase 12: the 10-class real-data path at configs/digits.yml's widths (32
+# px, patch 8, embed 48 over 4 heads of D = 12, depth 5, feature = hidden =
+# 64, T = 100, 5 members, 10 classes, MC 10) on the committed digits corpus,
+# its epochs cut (depth), never its widths
+DIGITS_DIR = "_smoke_digits"  # beside this script (gitignored), deleted at the end
+DIGITS_EPOCHS = (6, 10)  # stage 1 and stage 3, cut from the evidence run's 40 and 40
+DIGITS_MV_BAR = 40.0  # the clean test's majority-vote accuracy must reach this, % (PERF.md §2)
+DIGITS_INT8_POINTS = 3.0  # each int8 row's majority-vote accuracy within this of the float row's
+DIGITS_CLASSES, DIGITS_DEPTH, DIGITS_HEADS, DIGITS_FEATURE = 10, 5, 4, 64
+DIGITS_N = {"train": 1298, "valid": 144, "test": 355}  # 1442 train images carved 90/10, and t10k
+DIGITS_DDIM, DIGITS_VAL_DDIM, DIGITS_MC = 25, 10, 10  # --ddim 25; the config's val_ddim_steps, mc_trials
+DIGITS_VALIDATION_FREQ = 5  # the config's training.validation_freq
+DIGITS_INT8_SUITE = {  # test rows on the 355 images: EvalConfig overrides, chain launches a graph unit
+    "serving": ({"use_int8": True}, {}),
+    "use_int8_pallas": ({"use_int8": True, "use_int8_pallas": True}, {"int8_linear_softplus": 2 * DIGITS_DDIM}),
+    "pallas_fuse_ends": ({"use_int8": True, "use_int8_pallas": True, "pallas_fuse_ends": True},
+                         {"int8_eps_fused_l12": DIGITS_DDIM, "int8_eps_fused_l34": DIGITS_DDIM}),
+}
+
+
+def graph_units(n: int, batch: int) -> int:
+    """How many times an evaluation over ``n`` images at ``batch`` counts
+    its per-batch launches: each batch shape's first batch twice (the
+    graph's eager warm-up, then its replay), every later batch once."""
+    full, tail = divmod(n, batch)
+    return (full + 1 if full else 0) + (2 if tail else 0)
+
+
+def digits_step_launches(module: str, argv: list, e1: int, e3: int) -> dict:
+    """Each kernel's launches in one step of ``run_digits`` at epochs
+    (``e1``, ``e3``). K3 runs once a ViT block of a forward (its VJP is not
+    a launch); K1 three times an eps call."""
+    def ceil(n, b):
+        return -(-n // b)
+
+    def value(flag):
+        return argv[argv.index(flag) + 1]
+
+    name = module.rsplit(".", 1)[1]
+    train_steps = ceil(DIGITS_N["train"], 32)
+    if name == "train_transformer":  # every epoch: the train steps, then the valid split at batch 70
+        return {"flash_attention": DIGITS_DEPTH * (train_steps + ceil(DIGITS_N["valid"], 70)) * e1}
+    if name == "train_mapping":  # MLP k taps after block k + 1: train steps and the valid split at 32
+        blocks = int(value("--mlp_idx")) + 1
+        return {"flash_attention": blocks * (train_steps + ceil(DIGITS_N["valid"], 32)) * e1}
+    if "--train" in argv:
+        # validations at the config's frequency and the last epoch: DDIM-10,
+        # one trial, the valid split at the sampling batch 64
+        validations = sum(1 for e in range(e3) if e % DIGITS_VALIDATION_FREQ == 0 or e + 1 == e3)
+        want = {"fused_linear_act": 3 * DIGITS_VAL_DDIM * ceil(DIGITS_N["valid"], 64) * validations}
+        if value("--mlp_idx") == "0":  # member 0 precomputes every head's y0_hat; the others read its cache
+            want["flash_attention"] = DIGITS_DEPTH * (train_steps + ceil(DIGITS_N["valid"], 64))
+        return want
+    units = graph_units(DIGITS_N["valid" if "--calib" in argv else "test"], 64)
+    want = {"fused_linear_act": 3 * DIGITS_DDIM * units, "flash_attention": DIGITS_DEPTH * units}
+    if "--attack_name" in argv:  # FGSM: a gradient forward and a success forward of the ViT a batch
+        want["flash_attention"] += 2 * DIGITS_DEPTH * ceil(DIGITS_N["test"], 64)
+    return want
+
+
+def run_digits_pipeline(root: str):
+    """Phase 12 (a): ``examples/run_digits.py`` on the committed corpus at
+    ``DIGITS_EPOCHS``, each step's launches held to
+    :func:`digits_step_launches`; then (b) the int8 test rows of
+    ``DIGITS_INT8_SUITE`` through ``cli.main --test --suite`` on the same
+    members. Returns (each kernel's launches, the summary, the members'
+    checkpoints, the calibrated temperature)."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.cli import main as cli_main
+    from ladine_tpu_torch.examples import run_digits
+
+    e1, e3 = DIGITS_EPOCHS
+    total = dict.fromkeys(KERNELS, 0)
+    ckpts = []
+
+    def counted(module, argv, log_path, done=None):
+        before = {k: K.launch_counts[k] for k in KERNELS}
+        vjp = K.vjp_runs["flash_attention"]
+        seconds = run_digits.run_step(module, argv, log_path, done)
+        got = {k: K.launch_counts[k] - before[k] for k in KERNELS if K.launch_counts[k] != before[k]}
+        want = {k: v for k, v in digits_step_launches(module, argv, e1, e3).items() if v}
+        doc = argv[argv.index("--doc") + 1] if "--doc" in argv else module.rsplit(".", 1)[1]
+        print(f"    {doc}{' ' + argv[argv.index('--mlp_idx') + 1] if doc == 'train_mapping' else ''}: "
+              f"{seconds:.1f} s, launches {got}, K3 VJP runs {K.vjp_runs['flash_attention'] - vjp}")
+        assert got == want, (module, argv, got, want)
+        for k, v in got.items():
+            total[k] += v
+        return seconds
+
+    work = os.path.join(root, "run")
+    t0 = time.perf_counter()
+    out = run_digits.run(work, "cuda", epochs=DIGITS_EPOCHS, step=counted)
+    print(f"  (a) run_digits at epochs {DIGITS_EPOCHS} in {time.perf_counter() - t0:.1f} s: ViT val acc "
+          f"{out['stage1a_vit_val_acc']:.2f} %, MLPs {out['stage1b_mlp_val_accs']}, T {out['calibrated_temperature']:.4g} "
+          f"(vote-fraction ECE limit {out['ece_vote_fraction_limit']:.4f}), EMA T {out['calibrated_temperature_ema']:.4g}")
+    for key in ("test", "test_ema_debiased", "test_fgsm_eps0.03", "test_noise_0.1"):
+        r = out[key]
+        print(f"    {key}: mv-acc {r['majority_vote_accuracy']:.2f} ± {r['majority_vote_accuracy_ci95_pp']:.1f} %, "
+              f"acc {r['mean_confidence_accuracy']:.2f} %, ECE {r['ece']:.4f}, NLL {r['nll']:.4f}, "
+              f"Brier {r['brier']:.4f}, {r['num_instances']} images")
+        assert r["num_instances"] == DIGITS_N["test"] and all(np.isfinite(v) for v in r.values()), (key, r)
+    clean = out["test"]["majority_vote_accuracy"]
+    print(f"    clean mv-acc {clean:.2f} % against the bar {DIGITS_MV_BAR} %: {'ok' if clean >= DIGITS_MV_BAR else 'FAIL'}")
+    assert clean >= DIGITS_MV_BAR, f"the clean test's majority-vote accuracy {clean:.2f} % is under {DIGITS_MV_BAR} %"
+
+    exp = os.path.join(work, "exp")
+    for k in range(5):
+        found = [p for p in os.listdir(os.path.join(exp, "logs", f"member{k}")) if "_ckpt_best_" in p]
+        ckpts.append(os.path.join(exp, "logs", f"member{k}",
+                                  max(found, key=lambda p: int(p.split("_eph")[1].split("_")[0]))))
+    suite_path = os.path.join(root, "int8_suite.json")
+    with open(suite_path, "w") as f:
+        json.dump({name: o for name, (o, _) in DIGITS_INT8_SUITE.items()}, f)
+    units = graph_units(DIGITS_N["test"], 64)
+    want = dict.fromkeys(KERNELS, 0)
+    for _, chain in DIGITS_INT8_SUITE.values():
+        want["flash_attention"] += DIGITS_DEPTH * units
+        for k, v in chain.items():
+            want[k] += v * units
+    temperature = out["calibrated_temperature"]
+    res, c = run_cli("(b) main --test --suite (serving, + use_int8_pallas, + pallas_fuse_ends)", cli_main.main,
+                     ["--device", "cuda", "--config", run_digits.CONFIG, "--dataroot", os.path.join(work, "digits_root"),
+                      "--exp", exp, "--doc", "int8_suite", "--test", "--suite", suite_path, "--ddim", str(DIGITS_DDIM),
+                      "--eta", "1.0", "--temperature", str(temperature), "--diffusion_ckpt", *ckpts],
+                     want, root, train_images=False)
+    for name, row in res["rows"].items():
+        gap = row["mv_accuracy"] - clean
+        print(f"    int8 row {name}: mv-acc {row['mv_accuracy']:.2f} % ({gap:+.2f} points from the float row), "
+              f"acc {row['accuracy']:.2f} %, ECE {row['ece']:.4f}")
+        assert abs(gap) <= DIGITS_INT8_POINTS, (name, row, clean)
+    for k, v in c.items():
+        total[k] += v
+    return total, out, ckpts, temperature
+
+
+def digits_bf16(root: str, ckpts, temperature):
+    """Phase 12 (c), the bf16 path that F6 and F7 open: a bf16
+    ``Predictor`` from (a)'s checkpoints (lin1 at K = 20 with the float32
+    gate, K3 at D = 12), eager against graphed at DDIM-25 and at
+    ``serving`` + K5 (equal exactly; K5 within K5_RTOL); a bf16 ViT forward
+    of the stage-1 checkpoint against its float32 forward; one bf16 member
+    train step at 10 classes. Returns each kernel's launches."""
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.cli.runner import Runner
+    from ladine_tpu_torch.config import Config
+    from ladine_tpu_torch.data.downloads import load_mnist_family
+    from ladine_tpu_torch.examples import run_digits
+    from ladine_tpu_torch.models import ConditionalModel, ViT
+    from ladine_tpu_torch.train import create_member_states, make_member_step, make_optimizer
+    from ladine_tpu_torch.utils import load_checkpoint
+
+    before = {k: K.launch_counts[k] for k in KERNELS}
+    cfg = Config.from_yaml(run_digits.CONFIG)
+    cfg.model.dtype = "bfloat16"
+    runner = Runner(cfg, log_dir=None, device="cuda")
+    stacked, g_tree, heads = runner.load_members_from_train_ckpts(ckpts, eval_cast=True)
+    gvars = {"params": runner.to_eval_vars(g_tree["params"], runner.guidance, eval_cast=True)}
+    guidance, model = runner.guidance_module(gvars), runner.members_module(stacked)
+    assert next(model.parameters()).dtype == torch.bfloat16 and model.lin1.linear.weight.shape[-2] == 20
+    data_root = os.path.join(root, "run", "digits_root")
+    test = load_mnist_family("MNIST", data_root, "test", image_size=(32, 32))
+    images, labels = next(test.batches(64))
+    images = np.ascontiguousarray(images, dtype=np.float32)
+    for name, flags, rtol, want in (
+            ("bf16 DDIM-25", {}, 0.0, {"fused_linear_act": 3 * DIGITS_DDIM, "flash_attention": DIGITS_DEPTH}),
+            ("bf16 serving + pallas_fuse_ends", dict(use_int8=True, use_int8_pallas=True, pallas_fuse_ends=True),
+             K5_RTOL, {"int8_eps_fused_l12": DIGITS_DDIM, "int8_eps_fused_l34": DIGITS_DDIM,
+                       "flash_attention": DIGITS_DEPTH})):
+        pred = L.Predictor(guidance=guidance, model=model, sched=runner.sched, temperature=temperature,
+                           mc_trials=DIGITS_MC, ddim_steps=DIGITS_DDIM, ddim_eta=1.0, head_indices=heads,
+                           device="cuda", **flags)
+        counts0 = {k: K.launch_counts[k] for k in KERNELS}
+        eager = eager_request(pred, images, EAGER_SEED)
+        eager_counts = {k: K.launch_counts[k] - counts0[k] for k in KERNELS if K.launch_counts[k] != counts0[k]}
+        pred.predict(images, generator=generator(EAGER_SEED))  # warm-up and capture, then a replay
+        counts0 = {k: K.launch_counts[k] for k in KERNELS}
+        t0 = time.perf_counter()
+        graphed = pred.predict(images, generator=generator(EAGER_SEED))
+        graph_ms = (time.perf_counter() - t0) * 1e3
+        graph_counts = {k: K.launch_counts[k] - counts0[k] for k in KERNELS if K.launch_counts[k] != counts0[k]}
+        equal = same_outputs(graphed, eager, rtol)
+        bits = same_outputs(graphed, eager, 0.0)
+        acc = 100.0 * float((graphed["majority_vote"] == labels).mean())
+        print(f"  (c) {name} Predictor, batch {len(images)}: graph {graph_ms:.1f} ms; graph against eager "
+              f"{'equal' if equal else 'DIFFER'}{f' (rtol {rtol:g}; bit for bit: {bits})' if rtol else ' (exactly)'}; "
+              f"mv-acc on the batch {acc:.1f} %; launches eager {eager_counts}, graph {graph_counts}")
+        assert equal, (name, spread(graphed, eager))
+        assert graphed["probs"].shape == (len(images), DIGITS_CLASSES) and np.isfinite(graphed["probs"]).all()
+        assert eager_counts == want and graph_counts == want, (name, eager_counts, graph_counts, want)
+        del pred
+    # a bf16 ViT forward at D = 12 against the float32 forward of the same weights
+    tree, _ = load_checkpoint(os.path.join(root, "run", "models", "vit_MNIST"))
+    vits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vit = ViT(DIGITS_CLASSES, 32, 8, 48, DIGITS_DEPTH, DIGITS_HEADS, device="cuda", dtype=dtype)
+        vit.load_state_dict({k: v.to(dtype) for k, v in tree["params"].items()})
+        vits[dtype] = vit
+    x = torch.as_tensor(images, device="cuda")
+    counts0 = K.launch_counts["flash_attention"]
+    with torch.inference_mode():
+        ref, got = vits[torch.float32](x), vits[torch.bfloat16](x.to(torch.bfloat16)).float()
+    assert K.launch_counts["flash_attention"] - counts0 == 2 * DIGITS_DEPTH
+    agree = float((ref.argmax(-1) == got.argmax(-1)).float().mean())
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"  (c) bf16 ViT forward at D = 12, batch {len(x)}: logits within {err:.2e} of the float32 forward's "
+          f"largest, argmax equal on {100 * agree:.1f} % of the images")
+    assert torch.isfinite(got).all() and err < 5e-2 and agree >= 0.9, (err, agree)
+    # one bf16 member step at 10 classes: y0 one-hot, y0_hat from the bf16 guidance (K3 at D = 12)
+    compute = ConditionalModel(1, 3072, DIGITS_FEATURE, DIGITS_FEATURE, DIGITS_CLASSES, cfg.diffusion.timesteps + 1,
+                               device="meta", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tx = make_optimizer("Adam", 1e-3)
+    state = create_member_states(compute, gen, tx, 1, device="cuda")
+    params0 = {k: v.clone() for k, v in state.params.items()}
+    step = make_member_step(compute, tx, runner.sched)
+    with torch.inference_mode():
+        yh = torch.softmax(guidance.heads_subset(x.to(torch.bfloat16), (0,)).float(), -1)[0]
+    y0 = torch.eye(DIGITS_CLASSES, device="cuda")[torch.as_tensor(labels, device="cuda")]
+    state, loss = step(state, x.reshape(len(x), -1), y0, yh, gen)
+    moved = sum(int(not torch.equal(state.params[k], params0[k])) for k in params0)
+    print(f"  (c) bf16 member step at 10 classes, batch {len(x)}: loss {float(loss.float().mean()):.4f}, "
+          f"{moved} of {len(params0)} leaves moved")
+    assert torch.isfinite(loss).all() and moved == len(params0), (loss, moved)
+    return {k: K.launch_counts[k] - before[k] for k in KERNELS}
+
+
+def run_digits_phase():
+    """Phase 12: (a) and (b) (:func:`run_digits_pipeline`), then (c)
+    (:func:`digits_bf16`), in ``DIGITS_DIR`` beside this script (deleted at
+    the end). Returns each kernel's launches over the phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, DIGITS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        launches, _, ckpts, temperature = run_digits_pipeline(root)
+        t0 = time.perf_counter()
+        bf16_launches = digits_bf16(root, ckpts, temperature)
+        print(f"  (c) in {time.perf_counter() - t0:.1f} s; launches {bf16_launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: launches[k] + bf16_launches[k] for k in KERNELS}
+
+
+def check_phase12_shapes(entries):
+    """After phase 12 (not counted): each kernel against its plain version
+    at the digits serving shapes (64 images x 10 trials = 640 rows a
+    member, 5 members, 10 classes) at phase 2's tolerances, with its time,
+    the plain version's, the bound and, for K3, the library call's: K1 lin1
+    (5, 640, 20) -> 64 in float32 and in bf16 with the float32 gate (F6),
+    lin2/lin3 (5, 640, 64) -> 64 in both; K3 at (64, 16|17, 4, 12) in both
+    (F7 pads bf16 to D = 16) with its VJP; K4 at K = N = 64, K5a at Ci = 20
+    and K5b at C = 10 on float32 rows. ``phase12`` lists each record."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    by_name = {e["name"]: e for e in entries}
+    bf16, f32 = torch.bfloat16, torch.float32
+    m, r, f_, c_ = 5, 64 * DIGITS_MC, DIGITS_FEATURE, DIGITS_CLASSES
+    rate = {bf16: BF16_FLOP_PER_S, f32: FP32_FLOP_PER_S}
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=f32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, fn, plain, inputs, work, tol, library=None):
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(compare(f"{name} {label}", a, b, tol) for a, b in zip(got, want))
+        rec = dict(max_abs_err=err, ms=cuda_ms(fn, 50), plain_ms=cuda_ms(plain, 20), library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound((*inputs, *got), *work)
+        if library is not None:
+            rec["library_ms"] = cuda_ms(library, 20, spin=8_000_000)
+        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})" + ("" if library is None else f" library_ms={rec['library_ms']:.4f}"))
+        by_name[name].setdefault("phase12", {})[label] = rec
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    feats = rnd(m, r, f_)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+        y_in = rnd(m, r, 2 * c_, lo=0.0, hi=1.0, dtype=dtype)
+        w1 = rnd(m, 2 * c_, f_, lo=-0.5, hi=0.5, dtype=dtype)
+        args = (y_in, w1, a, c, feats)
+        held("fused_linear_act", f"lin1 K = 20 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32",
+             lambda: K.fused_linear_act(*args), lambda: K.fused_linear_act_plain(*args), args,
+             [(2 * m * r * 2 * c_ * f_, rate[dtype])], tol)
+        h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
+        w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=dtype)
+        args2 = (h, w, a, c, None)
+        held("fused_linear_act", f"lin2/lin3 {tuple(h.shape)}x{tuple(w.shape)} {str(dtype)[6:]}",
+             lambda: K.fused_linear_act(*args2), lambda: K.fused_linear_act_plain(*args2), args2[:4],
+             [(2 * m * r * f_ * f_, rate[dtype])], tol)
+    b, h_, d = 64, DIGITS_HEADS, 48 // DIGITS_HEADS
+    for n in (16, 17):  # the taps' bare patches; the classifier's patches and cls token
+        for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+            qkv = rnd(b, n, 3, h_, d, lo=-2.0, hi=2.0, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            label = f"{(b, n, h_, d)} {str(dtype)[6:]}"
+            held("flash_attention", label, lambda: K.flash_attention(q, k, v), lambda: K.flash_attention_plain(q, k, v),
+                 (q, k, v), [(4 * b * h_ * n * n * d, rate[dtype])], tol,
+                 library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            d_out, o = rnd(b, n, h_, d, dtype=dtype), K.flash_attention(q, k, v)
+            qg = qkv.detach().requires_grad_(True)
+            qs = (qg[:, :, 0], qg[:, :, 1], qg[:, :, 2])
+            ql = tuple(t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+            held("flash_attention", f"{label} backward (kernel forward, plain VJP)",
+                 lambda: torch.autograd.grad(K.flash_attention(*qs), qg, d_out),
+                 lambda: torch.autograd.grad(K.flash_attention_plain(*qs), qg, d_out),
+                 (q, k, v, o, d_out), [(10 * b * h_ * n * n * d, rate[dtype])], tol,
+                 library=lambda: torch.autograd.grad(F.scaled_dot_product_attention(*ql), ql, d_out.transpose(1, 2)))
+    w_q, w_scale = Q.quantize_weight(rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5))
+    s = (w_scale * a).contiguous()
+    colsum = w_q.sum(dim=1, dtype=torch.int32).float()
+    x = rnd(m, r, f_, lo=0.0, hi=2.0)
+    xmax = x.amax(-1, keepdim=True).contiguous()
+    args = (x, xmax, w_q, s, c, colsum)
+    held("int8_linear_softplus", f"zero-point x{tuple(x.shape)} fp32, w{tuple(w_q.shape)}",
+         lambda: K.int8_linear_softplus(*args), lambda: K.int8_linear_softplus_plain(*args), args,
+         [(2 * m * r * f_ * f_, INT8_OP_PER_S)], 1e-3)
+    y_in = rnd(m, r, 2 * c_, lo=0.0, hi=1.0)
+    w1 = rnd(m, 2 * c_, f_, lo=-0.5, hi=0.5)
+    codes, hmax1 = K.int8_lin1(feats, y_in, w1, a, c)
+    want_codes, want_max = K.int8_lin1_plain(feats, y_in, w1, a, c)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(codes, want_codes)) and bool(torch.equal(hmax1, want_max))
+    print(f"  int8_eps_fused_l12 lin1 pass at Ci = 20, f{tuple(feats.shape)} fp32: codes and max|h1| equal the "
+          f"plain version's: {same}")
+    assert same, "K5a's lin1 pass at Ci = 20 differs from its plain version"
+    args = (feats, y_in, w1, a, c, w_q, s, c)
+    held("int8_eps_fused_l12", f"Ci = 20 f{tuple(feats.shape)} fp32", lambda: K.int8_eps_l12(*args),
+         lambda: K.int8_eps_l12_plain(*args), args,
+         [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * 2 * c_ * f_, FP32_FLOP_PER_S)], 1e-3)
+    w4 = rnd(m, f_, c_, lo=-f_**-0.5, hi=f_**-0.5)
+    args = (x, xmax, w_q, s, c, colsum, w4)
+    held("int8_eps_fused_l34", f"C = 10 h2{tuple(x.shape)} fp32, w4{tuple(w4.shape)}", lambda: K.int8_eps_l34(*args),
+         lambda: K.int8_eps_l34_plain(*args), args,
+         [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * f_ * c_, FP32_FLOP_PER_S)], 1e-3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available: this script runs only on an NVIDIA card")
@@ -2516,6 +2879,16 @@ def main() -> int:
     check_phase11_shapes(entries)
     print(f"  phase 11 in {time.perf_counter() - t11:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
           f"launches a rank {mesh_launches}")
+    print(f"== phase 12: the 10-class real-data path at configs/digits.yml's widths: (a) run_digits, (b) the int8 "
+          f"test rows, (c) the bf16 path [{time.perf_counter() - start:.0f} s]")
+    free_memory()
+    t12 = time.perf_counter()
+    digits_launches = run_digits_phase()
+    t = time.perf_counter()
+    print("  phase 12's kernels against their plain versions at the digits shapes (not counted)")
+    check_phase12_shapes(entries)
+    print(f"  phase 12 in {time.perf_counter() - t12:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
+          f"launches {digits_launches}")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
@@ -2525,8 +2898,9 @@ def main() -> int:
         e["cli_launches"] = cli_launches.get(e["name"], 0)
         e["phase10_launches"] = phase10_launches.get(e["name"], 0)
         e["phase11_launches"] = mesh_launches.get(e["name"], 0)
+        e["phase12_launches"] = digits_launches.get(e["name"], 0)
         if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"],
-                 e["phase11_launches"]):
+                 e["phase11_launches"], e["phase12_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

@@ -12,7 +12,9 @@
 // 3.35 TB/s), against 4 * B * H * N^2 * D = 0.94 GFLOP (0.0010 ms at 989
 // TFLOP/s): the bytes bound it, and K and V of every (b, h) fit in L2.
 //
-// bf16 body (D a multiple of 16 up to 128). One block of 4 warps per (64
+// bf16 body (D a multiple of 16 up to 128; the wrapper zero-pads a head of
+// another width, D = 12 in the digits ViT, to the next multiple of 16 and
+// passes the real D's scale, as the TPU kernel pads D to 128). One block of 4 warps per (64
 // query rows, head, batch): 4 x 12 x 8 = 384 blocks at ViT-B, which fit the
 // 132 SMs in one wave at 3 blocks an SM. cp.async copies the whole K (with
 // the Q tile) and V of the block's (b, h) into shared memory, 16 bytes a

@@ -2,7 +2,7 @@
 //
 //   out[m] = softplus((x[m] @ w[m]) * a[m] + c[m]) [* mult[m]]
 //   x: (M, R, K)  w: (M, K, N)  a, c: (M, N) fp32  mult, out: (M, R, N)
-//   mult in x's dtype, or fp32 beside bf16 x in the small_k body
+//   mult in x's dtype, or fp32 beside bf16 x (lin1's gate, the fp32 features)
 //
 // Replaces the TPU kernel ladine_tpu/kernels/fused_linear.py::fused_linear_act
 // (bodies _kernel and _kernel_mult). It is the eps layer of every reverse
@@ -11,7 +11,7 @@
 // launch covers all members. Three bodies, chosen by the wrapper from the
 // shape and dtype (kernels/fused_linear.py::plan):
 //
-// small_k (K <= 16, both dtypes; lin1). An outer product and an elementwise
+// small_k (K <= 16, both dtypes; lin1 up to 8 classes). An outer product and an elementwise
 // pass. Its gate mult is the encoder's features, fp32 as flax's last
 // BatchNorm leaves them (the TPU kernel multiplies by them in fp32), so beside
 // bf16 x and w it reads mult in fp32: at the path's shape (M = 5, R = 160,
@@ -26,7 +26,7 @@
 // loads of it in flight: 4 rows a thread, with w, a and c read once for them,
 // was faster with mult in L2 and slower on the path.
 //
-// mma (K > 16, bf16; lin2 and lin3). At R = 160 rows a member the call reads
+// mma (K > 16, bf16; lin2 and lin3, and lin1 above 8 classes). At R = 160 rows a member the call reads
 // each member's 4096 x 4096 weight once, 168 MB (0.050 ms at 3.35 TB/s; 0.054
 // ms with x, mult and out), against 27 GFLOP (0.027 ms at 989 TFLOP/s): the
 // weight bytes bound it, and the cost is reading the same bytes more than
@@ -42,9 +42,12 @@
 // are in flight while one is multiplied. Fragments come from shared memory by
 // ldmatrix (.trans for w's row-major K x N tile) into mma.sync.m16n8k16. The
 // epilogue runs in registers on the accumulator fragments (a, c, softplus,
-// mult, bf16 store): no shared C tile. Ragged R, N and K are zero-filled;
-// where K or N is not a multiple of 8 or a pointer is not 16-byte aligned,
-// tiles are staged element by element.
+// mult, bf16 store): no shared C tile. Its gate mult is bf16 (lin2's h1) or
+// fp32: lin1 at C > 8 classes (K = 2C > 16, 20 at the 10-class digits
+// config) leaves small_k for this body with the fp32 features as its gate,
+// read in fp32 as the TPU kernel reads them. Ragged R, N and K are
+// zero-filled; where K or N is not a multiple of 8 or a pointer is not
+// 16-byte aligned, tiles are staged element by element.
 //
 // simt (K > 16, fp32). 64 x 64 tiles of 128 threads, 8 x 4 fp32 FMA outputs
 // each, a 2-stage cp.async ring and the epilogue from a shared fp32 tile. It
@@ -74,6 +77,12 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// two consecutive gate values (8-byte aligned fp32 or 4-byte aligned bf16)
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
 __device__ __forceinline__ float softplus(float z) { return fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))); }
 
@@ -230,10 +239,11 @@ static_assert(PART * THREADS / 2 * (int)sizeof(float) <= SMEM_BYTES, "partials f
 // block sums its half, then rank r finishes rows 80 r .. 80 r + 79: the other
 // half of its partial tile goes through shared memory to its peer, which adds
 // it (distributed shared memory) before the epilogue.
+template <typename MT>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(mma_cfg::THREADS, 2)
 fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                         const float* __restrict__ a, const float* __restrict__ c,
-                        const bf16* __restrict__ mult, bf16* __restrict__ out, int R, int K, int N,
+                        const MT* __restrict__ mult, bf16* __restrict__ out, int R, int K, int N,
                         bool vec) {
   using namespace mma_cfg;
   namespace cg = cooperative_groups;
@@ -333,7 +343,7 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
           for (int e = 0; e < 2; ++e) v[e] = softplus(acc[i][j][2 * hh + e] * av[e] + cv[e]);
           if (vec) {  // N % 8 == 0: both columns are in range, 4-byte aligned
             if (mult != nullptr) {
-              float2 mv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mult + o));
+              float2 mv = load2(mult + o);
               v[0] *= mv.x, v[1] *= mv.y;
             }
             *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v[0], v[1]);
@@ -341,7 +351,7 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               if (col + e >= N) continue;
-              if (mult != nullptr) v[e] *= __bfloat162float(mult[o + e]);
+              if (mult != nullptr) v[e] *= to_f(mult[o + e]);
               out[o + e] = __float2bfloat16(v[e]);
             }
           }
@@ -351,16 +361,17 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cluster.sync();  // the peer has read this block's partials
 }
 
+template <typename MT>
 int launch_mma(const void* x, const void* w, const void* a, const void* c, const void* mult,
                void* out, int M, int R, int K, int N, bool vec, cudaStream_t s) {
   using namespace mma_cfg;
-  cudaError_t err = cudaFuncSetAttribute(fused_linear_mma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(fused_linear_mma_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(2 * ((R + BM - 1) / BM), (N + BN - 1) / BN, M);
-  fused_linear_mma_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+  fused_linear_mma_kernel<MT><<<grid, THREADS, SMEM_BYTES, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(c), static_cast<const bf16*>(mult), static_cast<bf16*>(out), R, K, N,
+      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<bf16*>(out), R, K, N,
       vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -447,7 +458,7 @@ int launch_simt(const void* x, const void* w, const void* a, const void* c, cons
 }  // namespace
 
 // body: 0 small_k (either dtype), 1 mma (bf16), 2 simt (fp32); mult_f32: mult
-// is fp32 beside bf16 x (small_k only). Any other pairing is refused with
+// is fp32 beside bf16 x (small_k and mma). Any other pairing is refused with
 // cudaErrorInvalidValue.
 extern "C" int fused_linear_act_launch(const void* x, const void* w, const void* a, const void* c,
                                        const void* mult, void* out, int M, int R, int K, int N,
@@ -459,9 +470,10 @@ extern "C" int fused_linear_act_launch(const void* x, const void* w, const void*
     if (is_bf16) return launch_small_k<bf16, bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
     return launch_small_k<float, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   }
-  if (mult_f32 && is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  if (body == MMA && is_bf16) return launch_mma(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-  if (body == SIMT && !is_bf16) return launch_simt(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+  if (body == MMA && is_bf16 && mult_f32)
+    return launch_mma<float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+  if (body == MMA && is_bf16) return launch_mma<bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+  if (body == SIMT && !is_bf16 && !mult_f32) return launch_simt(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

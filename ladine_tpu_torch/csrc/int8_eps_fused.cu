@@ -31,8 +31,10 @@
 // summed in order without fused multiply-adds, as the plain version sums
 // them, so both pick the same codes. l34: the zero-point codes of h2 come
 // from the quantizing pre-pass (as in K4), and the GEMM's LIN4 epilogue
-// contracts each h3 tile with its rows of w4 and adds the partial sums into
-// out with fp32 atomics.
+// contracts each h3 tile with its rows of w4; the tile's cluster adds the
+// ranks' partial sums of each row in rank order and into out with one fp32
+// atomic a row, a class and a column tile (bit-reproducible where N fits one
+// column tile).
 
 #include "int8_gemm.cuh"
 

@@ -54,9 +54,16 @@
 // zero-filled hmax (softplus is >= 0: exact and order-free; the TPU kernel
 // carries the row max along its sequential N axis, and nothing carries over
 // between blocks here). LIN4 contracts its h values with their rows of w4 as
-// it goes, sums across the warp columns in shared memory, then adds one fp32
-// atomicAdd a row, a class and a block into a zero-filled out, in an order
-// that changes from run to run.
+// it goes and sums across the warp columns in shared memory. Rank q of the
+// cluster then takes the q-th quarter of the tile's rows: it adds each
+// row's 4 ranks' sums in rank order through distributed shared memory and
+// makes one fp32 atomicAdd a row, a class and a column tile into a
+// zero-filled out. Where N fits one column tile (N <= 128, the
+// 10-class digits model's 64 among them) out is so the same bit for bit
+// from run to run: the reverse chain at 10 classes carried the run-to-run
+// rounding of 4 atomics a tile to 3e-4 of the probabilities (a graphed
+// request against its eager run). Several column tiles (full width: 32)
+// still meet in atomics in no fixed order.
 //
 // Numerics follow ladine_tpu/kernels/int8_pallas.py: round half to even
 // (rintf), IEEE division in the quantizer, and __fmul_rn/__fadd_rn keep the
@@ -82,6 +89,8 @@ constexpr int CLUSTER = 4;        // blocks splitting the K steps of one tile
 constexpr int FJ = FN / CLUSTER;  // n-tiles of a warp that each rank finishes
 constexpr int PART_BYTES = CLUSTER * FM * FJ * 4 * THREADS * 4;  // int32 partials, by destination
 constexpr int CLASSES = 2;  // lin4 classes an epilogue pass (the path has 2)
+constexpr int ROWS_A_RANK = BM / CLUSTER;  // the rows whose lin4 sums each rank adds up
+static_assert(BM % CLUSTER == 0, "the ranks split a tile's rows evenly");
 static_assert(FN % CLUSTER == 0, "each rank finishes whole n-tiles");
 static_assert(PART_BYTES + (CLASSES * WARPS_N * BM + BM) * 4 <= SMEM_BYTES,
               "partials, row sums and row scales fit the ring");
@@ -342,8 +351,10 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
 
   // The epilogue takes each row's max (STORE) or its partial sums of
   // CLASSES classes of lin4 (LIN4; more classes take more passes, each
-  // recomputing h) as it goes; the warp columns meet in red, and one atomic
-  // a row (and class) a block follows.
+  // recomputing h) as it goes; the warp columns meet in red. STORE: one
+  // atomicMax a row a block follows. LIN4: each rank leaves its row sums in
+  // red, and each row's 4 are added in rank order by the rank that owns the
+  // row, one atomicAdd a row and class a tile.
   constexpr int NQ = EPI == STORE ? 1 : CLASSES;
   const bool pairs = N % 2 == 0;  // then col < N implies col + 1 < N, 2-element aligned
   for (int c0 = 0; c0 < (EPI == STORE ? 1 : C); c0 += NQ) {
@@ -438,10 +449,26 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
         if constexpr (EPI == STORE)
           atomicMax(reinterpret_cast<int*>(hmax) + (size_t)m * R + rr, __float_as_int(v));
         else
-          atomicAdd(out + ((size_t)m * R + rr) * C + c0 + q, v);
+          red[q * WARPS_N * BM + tid] = v;  // this rank's sum of the row (a slot only this thread reads)
       }
     }
-    __syncthreads();  // red is read before another pass overwrites it
+    if constexpr (EPI == LIN4) {
+      cluster.sync();  // every rank's row sums are in its red
+      const int lr = rank * ROWS_A_RANK + tid, r4 = row0 + lr;  // rank q adds up the q-th quarter of the rows
+      if (tid < ROWS_A_RANK && r4 < R) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (c0 + q >= C) break;
+          float v = cluster.map_shared_rank(red, 0)[q * WARPS_N * BM + lr];
+#pragma unroll
+          for (int d = 1; d < CLUSTER; ++d) v += cluster.map_shared_rank(red, d)[q * WARPS_N * BM + lr];
+          atomicAdd(out + ((size_t)m * R + r4) * C + c0 + q, v);
+        }
+      }
+      if (c0 + NQ < C) cluster.sync();  // the sums are read before another pass overwrites them (the last: below)
+    } else {
+      __syncthreads();  // red is read before another pass overwrites it
+    }
   }
   cluster.sync();  // the peers have read this block's partials
 }

@@ -12,6 +12,8 @@ and backward, for the process.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -35,3 +37,14 @@ def cli_device(device: str) -> torch.device:
     except RuntimeError:
         raise SystemExit(f"--device {device}: CUDA is not available on this machine; pass --device cpu "
                          "to run on the CPU") from None
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, or "cpu": written
+    beside every number a run keeps."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

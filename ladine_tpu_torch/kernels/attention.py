@@ -9,7 +9,12 @@ one custom op (``kernels/_build.py``).
 
 The kernel has two bodies, chosen by dtype (:func:`body`): bfloat16 runs
 on the tensor cores (``mma.sync``) and takes D = 16, 32, ..., 128; float32
-runs scalar FMA and takes any D of whole 16-byte vectors.
+runs scalar FMA and takes any D of whole 16-byte vectors. A bfloat16 head
+of another width up to 128 (D = 12 in the digits ViT, embed 48 over 4
+heads) is zero-padded to the next multiple of 16 first (:func:`pad_heads`)
+and the kernel is given the real D's scale, as the JAX kernel pads D to
+128: zero columns add nothing to q k^T and give zero output columns, which
+are sliced off.
 
 The op has a gradient (:func:`flash_attention_vjp`), so the white-box
 attacks differentiate the ViT through it: the forward stays the kernel on a
@@ -77,6 +82,22 @@ def _lib():
     return lib
 
 
+def padded_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The D the kernel runs for heads of width ``d``: the next multiple of
+    16 in bfloat16 (the tensor-core body's k16 step), ``d`` in float32."""
+    return -(-d // 16) * 16 if dtype == torch.bfloat16 else d
+
+
+def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k and v zero-padded in D to :func:`padded_head_dim`: new
+    contiguous tensors, or the inputs themselves where D needs no padding."""
+    def pad(t):
+        extra = padded_head_dim(t.dtype, t.shape[-1]) - t.shape[-1]
+        return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+    return pad(q), pad(k), pad(v)
+
+
 def body(dtype: torch.dtype, d: int) -> str:
     """The kernel body that takes (dtype, D): "mma" for bfloat16, "scalar"
     for float32; raises on a bfloat16 D the tensor-core body cannot take."""
@@ -112,10 +133,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     On the card q, k and v share one dtype (float32 or bfloat16) and one
     stride pattern with a unit innermost stride, as the slices of a fused
-    qkv projection do; D, the other strides and the data pointers are
-    multiples of the kernel's 16-byte vector; in bfloat16 D is a multiple of
-    16 up to 128. The op ``torch.ops.ladine_tpu_torch.flash_attention``;
-    its gradient is :func:`flash_attention_vjp`."""
+    qkv projection do. In float32 D, the other strides and the data
+    pointers are multiples of the kernel's 16-byte vector; in bfloat16 D is
+    at most 128, and a D that is not a multiple of 16 runs on zero-padded
+    copies (:func:`pad_heads`). The op
+    ``torch.ops.ladine_tpu_torch.flash_attention``; its gradient is
+    :func:`flash_attention_vjp`, on the unpadded tensors."""
     return _op(q, k, v)
 
 
@@ -131,24 +154,26 @@ def _(q, k, v):
 
 @_op.register_kernel("cuda")
 def _launch(q, k, v):
-    b, n, h, d = _check(q, k, v)
+    d = q.shape[-1]  # the real D: its scale, also where the heads are padded
+    q, k, v = pad_heads(q, k, v)
+    b, n, h, dp = _check(q, k, v)
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
-    if lib.flash_attention_smem_bytes(n, d, is_bf16) > _MAX_SMEM:
-        raise ValueError(f"{_KERNEL}: K and V of N={n}, D={d} do not fit in shared memory")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if lib.flash_attention_smem_bytes(n, dp, is_bf16) > _MAX_SMEM:
+        raise ValueError(f"{_KERNEL}: K and V of N={n}, D={dp} do not fit in shared memory")
+    out = torch.empty((b, n, h, dp), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :d].contiguous()
     sb, sn, sh, _ = q.stride()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, n, h, d, sb, sn, sh, d**-0.5, is_bf16, stream,
+            b, n, h, dp, sb, sn, sh, d**-0.5, is_bf16, stream,
         )
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def _setup_context(ctx, inputs, output):

@@ -12,13 +12,14 @@ kernel, or the wrapper raises. Both are implementations of one custom op
 (``kernels/_build.py``).
 
 The kernel has three bodies, chosen by shape and dtype (:func:`plan`):
-``small_k`` for K <= 16 in either dtype (lin1, K = 4: an outer product and
-an elementwise pass; its gate ``mult`` may be float32 beside bfloat16 x and
-w, since the features are float32 and the JAX kernel multiplies by them in
-float32), ``mma`` for larger K in bfloat16 (lin2 and lin3: ``mma.sync``
-tiles of 160 rows x 128 columns, K split over a cluster pair of blocks,
-each weight strip read once), ``simt`` for larger K in float32. Each launch
-counts as one ``fused_linear_act``.
+``small_k`` for K <= 16 in either dtype (lin1 up to 8 classes, K = 4 at 2:
+an outer product and an elementwise pass), ``mma`` for larger K in
+bfloat16 (lin2 and lin3: ``mma.sync`` tiles of 160 rows x 128 columns, K
+split over a cluster pair of blocks, each weight strip read once; lin1
+above 8 classes, K = 20 at 10), ``simt`` for larger K in float32. lin1's
+gate ``mult`` is the float32 features beside bfloat16 x and w, since the
+JAX kernel multiplies by them in float32: both bfloat16 bodies read a
+float32 gate at any K. Each launch counts as one ``fused_linear_act``.
 """
 
 from __future__ import annotations
@@ -70,9 +71,6 @@ def _check(x, w, a, c, mult):
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"{_KERNEL}: x must be (M, R, K) and w (M, K, N)")
     m, r, k = x.shape
-    if mult is not None and mult.dtype != x.dtype and k > SMALL_K:
-        raise TypeError(f"{_KERNEL}: a float32 mult beside {x.dtype} x is taken for K <= {SMALL_K} "
-                        f"only (the small_k body), got K = {k}")
     if w.shape[:2] != (m, k):
         raise ValueError(f"{_KERNEL}: shapes x {tuple(x.shape)} and w {tuple(w.shape)} disagree")
     n = w.shape[2]
@@ -113,8 +111,8 @@ def fused_linear_act(
     """softplus((x @ w) * a + c) [* mult] for every member at once.
 
     x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N) or
-    None; x and w share one dtype (float32 or bfloat16), mult has it too or,
-    for K <= 16 (lin1, whose gate is the float32 features), is float32.
+    None; x and w share one dtype (float32 or bfloat16), mult has it too or
+    is float32 (lin1, whose gate is the float32 features), at any K.
     Returns (M, R, N) in x.dtype. On the card the kernel body follows from K
     and the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16
     and simt in float32. The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""

@@ -120,12 +120,43 @@ def test_flash_attention_bf16_mma_body_matches_plain(cuda, n, d):
 
 
 @pytest.mark.cuda
-def test_flash_attention_bf16_raises_on_d_24(cuda):
+def test_flash_attention_bf16_pads_d_24_and_raises_above_128(cuda):
+    """D = 24 in bf16 is no k16 step of the tensor-core body: the wrapper
+    runs it on zero-padded heads of 32 (one launch); above 128 it raises
+    before any launch."""
     q = torch.zeros(1, 4, 2, 24, device=cuda, dtype=torch.bfloat16)
+    launch_counts.clear()
+    out = flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1 and out.shape == q.shape and out.is_contiguous()
+    q = torch.zeros(1, 4, 2, 136, device=cuda, dtype=torch.bfloat16)
     launch_counts.clear()
     with pytest.raises(ValueError, match="multiple of 16"):
         flash_attention(q, q, q)
     assert launch_counts["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 24, 40])
+@pytest.mark.parametrize("n", [16, 17, 197])
+def test_flash_attention_bf16_pads_any_d_up_to_128(cuda, n, d):
+    """F7: bf16 heads of a width that is not a multiple of 16 (the digits
+    ViT's D = 12, at its 16 patches and 17 tokens) run on zero-padded
+    copies with the real D's scale, against the plain version on the
+    unpadded strided views; the gradient is the plain VJP on those views."""
+    qkv, _ = qkv_views(np.random.default_rng(17), 4, n, 4, d)
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1 and out.shape == (4, n, 4, d) and out.is_contiguous()
+    ref = flash_attention_plain(q, k, v)
+    _close(out, ref, 1e-2)
+    d_out = torch.randn(4, n, 4, d, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    (got,) = torch.autograd.grad(out, qkv, d_out.bfloat16())
+    (want,) = torch.autograd.grad(ref, qkv, d_out.bfloat16())
+    _close(got, want, 2e-2)
 
 
 @pytest.mark.cuda
@@ -173,10 +204,27 @@ def test_fused_linear_act_small_k_body_takes_a_float32_gate(cuda, shape):
     torch.cuda.synchronize()
     assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
     _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
-    # the mma body takes its gate in x's dtype only
+    # above K = 16 the mma body takes the float32 gate too (F6)
     x2, w2, a2, c2, mult2 = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(14), m, r, 32, n))
-    with pytest.raises(TypeError, match="small_k"):
-        fused_linear_act(x2.bfloat16(), w2.bfloat16(), a2, c2, mult2)
+    x2, w2 = x2.bfloat16(), w2.bfloat16()
+    _close(fused_linear_act(x2, w2, a2, c2, mult2), fused_linear_act_plain(x2, w2, a2, c2, mult2), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [18, 20, 32, 64])
+@pytest.mark.parametrize("shape", [(5, 640, 64), (5, 160, 4096), (2, 9, 17)], ids=["digits", "path", "ragged-N"])
+def test_fused_linear_act_takes_a_float32_gate_above_k_16(cuda, shape, k):
+    """F6: lin1 above 8 classes (K = 2C, 20 at the digits config's 10):
+    bf16 y_in and w1 with the float32 features as the gate leave small_k
+    for the mma body, which reads the gate in float32 and rounds once."""
+    m, r, n = shape
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(18), m, r, k, n))
+    x, w = x.bfloat16(), w.bfloat16()
+    launch_counts.clear()
+    out = fused_linear_act(x, w, a, c, mult)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
+    _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
 
 
 INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136)]
@@ -631,6 +679,54 @@ def test_int8_eps_l12_at_ci_2_matches_plain(cuda, dtype):
     tol = 1e-3 if dtype == torch.float32 else 1e-2
     _close(h2, ref_h2, tol)
     _close(hmax2, ref_m2, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 640, 64), (5, 160, 4096)], ids=["digits", "path"])
+def test_int8_eps_l12_at_ci_20_matches_plain(cuda, shape, dtype):
+    """K5a at 10 classes: the lin1 pass over Ci = 2C = 20 (codes equal to
+    the plain version's), then lin2."""
+    m, r, k = shape
+    rng = np.random.default_rng(19)
+    f, _, w_q2, s2, c2, _, _, _ = int8_layer_inputs(rng, m, r, k, k, cuda, dtype, False)
+    y_in = torch.from_numpy(rng.random((m, r, 20)).astype(np.float32)).to(cuda, dtype)
+    w1 = torch.from_numpy(rng.standard_normal((m, 20, k)).astype(np.float32) * 0.5).to(cuda, dtype)
+    a1, c1 = (torch.from_numpy(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32)).to(cuda) for _ in range(2))
+    codes, xmax = int8_lin1(f, y_in, w1, a1, c1)
+    want_codes, want_max = int8_lin1_plain(f, y_in, w1, a1, c1)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, want_codes) and torch.equal(xmax, want_max)
+    launch_counts.clear()
+    h2, hmax2 = int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l12"] == 1
+    ref_h2, ref_m2 = int8_eps_l12_plain(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    _close(h2, ref_h2, tol)
+    _close(hmax2, ref_m2, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("classes", [3, 10])
+@pytest.mark.parametrize("shape", [(5, 640, 64, 64), (5, 160, 4096, 4096)], ids=["digits", "path"])
+def test_int8_eps_l34_at_more_than_two_classes(cuda, shape, classes):
+    """K5b's lin4 epilogue above its 2 classes a pass (C = 10 takes 5
+    passes), on float32 rows as ``serving`` stores them (1e-4: lin4 sums in
+    another order than the plain product). Where N fits one column tile
+    (the digits shape) the sum is in a fixed order: two calls agree bit for
+    bit."""
+    m, r, k, n = shape
+    rng = np.random.default_rng(20)
+    h2, hmax2, w_q3, s3, c3, cs3, _, _ = int8_layer_inputs(rng, m, r, k, n, cuda, torch.float32, True)
+    w4 = torch.from_numpy(rng.standard_normal((m, n, classes)).astype(np.float32) * n**-0.5).to(cuda)
+    launch_counts.clear()
+    out = int8_eps_l34(h2, hmax2, w_q3, s3, c3, cs3, w4)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l34"] == 1 and out.shape == (m, r, classes)
+    _close(out, int8_eps_l34_plain(h2, hmax2, w_q3, s3, c3, cs3, w4), 1e-4)
+    if n <= 128:
+        assert all(torch.equal(out, int8_eps_l34(h2, hmax2, w_q3, s3, c3, cs3, w4)) for _ in range(3))
 
 
 @pytest.mark.cuda

@@ -8,8 +8,9 @@
   imported only inside the functions that decode an image or draw a plot.
 * Entry points run on the card by default and raise without CUDA, unless the
   caller passes ``device="cpu"``: the models, the schedule, the predictor,
-  the trainers' state makers, the hand-off from training to serving and
-  the GMM posterior check.
+  the trainers' state makers, the hand-off from training to serving, the
+  GMM posterior check and the real-data examples (the digits run, the
+  lowmem A/B, the minimal slice).
 """
 
 import ast
@@ -20,6 +21,7 @@ import torch
 
 from ladine_tpu_torch.cli.runner import Runner
 from ladine_tpu_torch.config import Config
+from ladine_tpu_torch.examples import lowmem_ab, minimal_slice, run_digits
 from ladine_tpu_torch.examples.gmm_posterior import run as gmm_run
 from ladine_tpu_torch.infer import Predictor
 from ladine_tpu_torch.models import ConditionalModel, MappingMLP, SEViTGuidance, ViT
@@ -52,6 +54,11 @@ def test_guard_reads_every_subpackage(package):
     assert all(p in _sources() for p in (ROOT / "ladine_tpu_torch" / package).glob("*.py"))
 
 
+@pytest.mark.parametrize("module", ["make_digits_corpus", "run_digits", "lowmem_ab", "minimal_slice"])
+def test_guard_reads_the_real_data_examples(module):
+    assert ROOT / "ladine_tpu_torch" / "examples" / f"{module}.py" in _sources()
+
+
 def _top_level_imports(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -68,7 +75,8 @@ def test_port_imports_nothing_of_jax(path):
 
 
 # optional packages the card machine lacks: where the port may import each
-OPTIONAL = {"yaml": set(), "PIL": {"data/imagefolder.py"}, "matplotlib": {"utils/plots.py"}}
+OPTIONAL = {"yaml": set(), "PIL": {"data/imagefolder.py"}, "matplotlib": {"utils/plots.py"},
+            "sklearn": {"examples/make_digits_corpus.py"}}
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -123,6 +131,33 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(name, monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name]()
     ENTRY_POINTS[name](device="cpu")
+
+
+class _Reached(Exception):
+    """Raised by a stub step: the entry point got past its device check."""
+
+
+def _stop(*_args, **_kw):
+    raise _Reached
+
+
+EXAMPLES = {
+    "run_digits": lambda tmp, **kw: run_digits.run(str(tmp / "digits"), step=_stop, **kw),
+    "lowmem_ab": lambda tmp, **kw: lowmem_ab.run(str(tmp / "ab"), **kw),
+    "minimal_slice": lambda tmp, **kw: minimal_slice.build(**kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_real_data_examples_raise_without_cuda_unless_asked_for_cpu(name, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(lowmem_ab, "cli_arm", _stop)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EXAMPLES[name](tmp_path)
+    try:
+        EXAMPLES[name](tmp_path, device="cpu")
+    except _Reached:
+        pass
 
 
 def test_predictor_raises_without_cuda_unless_asked_for_cpu(monkeypatch):

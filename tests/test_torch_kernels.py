@@ -21,6 +21,7 @@ from ladine_tpu.kernels import fused_linear_act as jax_fused_linear_act
 from ladine_tpu.models import ConditionalModel as JaxConditionalModel
 from ladine_tpu_torch.kernels import (
     flash_attention,
+    flash_attention_plain,
     fused_eps,
     fused_linear_act,
     fused_linear_act_plain,
@@ -153,6 +154,10 @@ BF16, F32 = torch.bfloat16, torch.float32
         (F32, 256, 200, True, ("simt", True)),
         (BF16, 72, 64, True, ("mma", True)),
         (F32, 40, 12, True, ("simt", True)),  # fp32's vector is 4 wide
+        (BF16, 20, 64, True, ("mma", False)),  # lin1 at 10 classes (digits): K = 20
+        (F32, 20, 64, True, ("simt", True)),
+        (BF16, 64, 64, True, ("mma", True)),  # digits lin2 / lin3
+        (F32, 64, 64, True, ("simt", True)),
     ],
 )
 def test_fused_linear_act_plan_is_a_function_of_shape_dtype_and_alignment(dtype, k, n, aligned, want):
@@ -197,3 +202,39 @@ def test_flash_attention_check_raises_on_bf16_d_24():
         attn_mod._check(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
     qkv, _ = qkv_views(np.random.default_rng(5), 2, 5, 2, 32)
     assert attn_mod._check(*(qkv.bfloat16()[:, :, i] for i in range(3))) == (2, 5, 2, 32)
+
+
+@pytest.mark.parametrize("k", [4, 16, 18, 20, 64, 4096])
+def test_fused_linear_act_takes_a_float32_gate_beside_bf16_at_any_k(k):
+    """F6: lin1's gate is the float32 features beside bf16 y_in and w1, at
+    K = 2C for any class count, as the JAX ``_kernel_mult`` takes it; the
+    plan is the same as without a gate. Only a gate of a third dtype, or a
+    bf16 gate beside float32 x, is refused."""
+    x, w, mult = torch.zeros(2, 3, k, dtype=BF16), torch.zeros(2, k, 8, dtype=BF16), torch.zeros(2, 3, 8)
+    a = c = torch.zeros(2, 8)
+    assert fl_mod._check(x, w, a, c, mult) == (2, 3, k, 8)
+    assert fl_mod.plan(BF16, k, 8, True) == (("small_k", True) if k <= 16 else ("mma", k % 8 == 0))
+    with pytest.raises(TypeError, match="mult must be float32 or x's dtype"):
+        fl_mod._check(x, w, a, c, mult.half())
+    with pytest.raises(TypeError, match="mult must be float32 or x's dtype"):
+        fl_mod._check(x.float(), w.float(), a, c, mult.bfloat16())
+    out = fused_linear_act(x, w, a, c, mult)  # the plain version on the CPU: one rounding, in x's dtype
+    assert out.dtype == BF16 and out.shape == (2, 3, 8)
+
+
+@pytest.mark.parametrize("d, dp", [(8, 16), (12, 16), (16, 16), (24, 32), (40, 48), (100, 112), (128, 128)])
+def test_pad_heads_keeps_the_attention_of_the_real_d(d, dp):
+    """F7: a bfloat16 head of width D runs on zero-padded copies of width
+    the next multiple of 16, with D's scale: scores and the sliced output
+    are those of the unpadded heads; float32 heads are not padded."""
+    assert attn_mod.padded_head_dim(BF16, d) == dp and attn_mod.padded_head_dim(F32, d) == d
+    qkv, (q, k, v) = qkv_views(np.random.default_rng(6), 2, 17, 4, d)
+    assert all(a is b for a, b in zip(attn_mod.pad_heads(q, k, v), (q, k, v)))  # float32: as they are
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    qp, kp, vp = attn_mod.pad_heads(qb, kb, vb)
+    assert qp.shape == (2, 17, 4, dp) and qp.is_contiguous() and attn_mod._check(qp, kp, vp) == (2, 17, 4, dp)
+    for padded, t in ((qp, qb), (kp, kb), (vp, vb)):
+        assert torch.equal(padded[..., :d], t) and not padded[..., d:].any()
+    s = torch.einsum("bnhd,bmhd->bhnm", qp.float(), kp.float()) * d**-0.5
+    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1).to(BF16), vp).to(BF16)[..., :d]
+    torch.testing.assert_close(out, flash_attention_plain(qb, kb, vb), rtol=0, atol=0)
