@@ -209,6 +209,22 @@ Phases, each fatal on failure (no failure is caught):
    the float32 one, one bf16 member step at 10 classes. Then, not counted,
    every kernel at the digits shapes against its plain version, with its
    time and bound (``check_phase12_shapes``).
+13. The evidence pipeline at ``configs/synthetic224.yml``'s widths (those
+   of phase 8) with Pillow's import blocked (``sys.modules["PIL"] =
+   None``), in ``_smoke_results/`` beside the script (gitignored, deleted
+   at the end): (b) ``examples/run_results.py`` on a synthetic corpus cut to
+   ``RESULTS_CORPUS`` (one test and one validation batch of 70) with its
+   epochs cut to ``RESULTS_EPOCHS`` and the ``--fast`` suite, each step's
+   launches exact (``results_step_launches``), every report finite over its
+   70 images, the EMA test's samples (``--save_samples`` added to that
+   step) finite with probs rows summing to 1, then a second call that runs
+   no step; (a) the corpus it wrote through ``data/png.py`` read back by
+   ``load_split`` equal to the generator's pixels; (c)
+   ``examples/profile_serving.py`` at batch 70 with the int8, K4, K5 and
+   int8-encode rows, ``PROFILE_REPS`` reps, its launches exact
+   (``profile_launches``). Then, not counted, K1 (lin1 and lin2/lin3), K3,
+   K5a and K5b at the batch-70 shapes in bf16 and float32 against their
+   plain versions (``check_phase13_shapes``).
 
 It prints a JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
@@ -216,8 +232,10 @@ last ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import io
 import json
 import os
 import shutil
@@ -2793,6 +2811,269 @@ def check_phase12_shapes(entries):
          [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * f_ * c_, FP32_FLOP_PER_S)], 1e-3)
 
 
+RESULTS_DIR = "_smoke_results"  # beside this script (gitignored), deleted at the end
+RESULTS_CORPUS = {"training": 30, "validation": 35, "testing": 35}  # images a class: one batch of 70 to evaluate
+RESULTS_EPOCHS = (1, 1)  # stage 1 and stage 3, cut from the evidence run's 80 and 100
+RESULTS_TEST_BATCH, RESULTS_VAL_DDIM = 70, 25  # configs/synthetic224.yml's testing batch and val_ddim_steps
+PROFILE_REPS = 1  # profile_serving's --reps: 41 calls of the ViT and guidance parts, 2 of each scan
+# K3 in a forward of all K + 1 guidance heads: the tap path on the bare patches to block 5, then the full ViT
+GUIDANCE_FORWARD = 5 + VIT_DEPTH
+
+
+def results_step_launches(module: str, argv: list) -> dict:
+    """Each kernel's launches in one step of ``run_results`` at
+    ``RESULTS_CORPUS`` and ``RESULTS_EPOCHS``, full width (ViT-B/16: K3 12
+    times a full forward, 5 for the five mapping heads' taps; K1 three
+    times an eps call). Evaluations run one batch of 70, counted twice (the
+    graph's eager warm-up, then its replay; ``eval_launches``)."""
+    def ceil(n, b):
+        return -(-n // b)
+
+    def value(flag):
+        return argv[argv.index(flag) + 1]
+
+    e1, e3 = RESULTS_EPOCHS
+    n = {k: 2 * v for k, v in RESULTS_CORPUS.items()}
+    train_steps = ceil(n["training"], TRAIN_BATCH)
+    name = module.rsplit(".", 1)[1]
+    if name == "train_transformer":  # the train steps, then the validation split at its eval batch 70
+        return {"flash_attention": VIT_DEPTH * (train_steps + ceil(n["validation"], 70)) * e1}
+    if name == "train_mapping":  # MLP k taps after block k + 1: train steps and the validation split at 30
+        return {"flash_attention": (int(value("--mlp_idx")) + 1) * (train_steps + ceil(n["validation"], 30)) * e1}
+    if "--eval_guidance" in argv:  # all K + 1 heads over the validation split
+        return {"flash_attention": GUIDANCE_FORWARD * ceil(n["validation"], RESULTS_TEST_BATCH)}
+    if "--train" in argv:
+        # one validation an epoch here: DDIM-25, one trial, at the sampling batch 70; member 0
+        # precomputes the five mapping heads' y0_hat, the others read its cache
+        want = {"fused_linear_act": 3 * RESULTS_VAL_DDIM * ceil(n["validation"], 70) * e3}
+        if value("--mlp_idx") == "0":
+            want["flash_attention"] = 5 * (train_steps + ceil(n["validation"], 70))
+        return want
+    batches = n["validation" if "--calib" in argv else "testing"] // RESULTS_TEST_BATCH
+    if "--suite" not in argv:  # --calib and --test at DDIM-50
+        return eval_launches({"fused_linear_act": 3 * 50}, batches)
+    with open(value("--suite")) as f:
+        rows = json.load(f)
+    want = dict.fromkeys(KERNELS, 0)
+    for row in rows.values():
+        steps = row.get("ddim_steps", 0) or 1000
+        if row.get("pallas_fuse_ends"):
+            chain = {"int8_eps_fused_l12": steps, "int8_eps_fused_l34": steps}
+        elif row.get("use_int8_pallas"):
+            chain = {"int8_linear_softplus": 2 * steps}
+        else:  # use_int8 runs the torch._int_mm layers
+            chain = {} if row.get("use_int8") else {"fused_linear_act": 3 * steps}
+        attack = ATTACK_FORWARDS[row["attack_name"]] if row.get("attack_name") else 0
+        for k, v in eval_launches(chain, batches, attack).items():
+            want[k] += v
+    return want
+
+
+def profile_launches(reps: int) -> dict:
+    """``profile_serving --batch 70 --reps reps --int8 --pallas_int8
+    --int8_encode`` (DDIM-50): a warm-up and ``reps`` x (40 | 20 | 1)
+    calls a part; the served request (a ``Predictor``) counts its first
+    call twice."""
+    many, some, once = 1 + 40 * reps, 1 + 20 * reps, 1 + reps
+    return {"flash_attention": VIT_DEPTH * many + GUIDANCE_FORWARD * (many + once) + 5 * (many + 2 * some + reps + 2),
+            "fused_linear_act": 150 * (2 * once + reps + 2), "int8_linear_softplus": 100 * once,
+            "int8_eps_fused_l12": 50 * once, "int8_eps_fused_l34": 50 * once}
+
+
+def run_results_phase():
+    """Phase 13, with Pillow's import blocked: (a) the port's
+    ``make_synth_medical`` writes ``RESULTS_CORPUS`` through ``data/png.py``
+    and ``load_split`` reads it back equal to the generator's pixels; (b)
+    ``run_results.run`` at full width with ``RESULTS_EPOCHS`` and the
+    ``--fast`` suite, each step's launches held to
+    :func:`results_step_launches`, then a second call that runs no step;
+    (c) ``profile_serving`` at batch 70. Returns each kernel's launches."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.data.imagefolder import load_split
+    from ladine_tpu_torch.examples import make_synth_medical, profile_serving, run_digits, run_results
+    from ladine_tpu_torch.metrics import ensemble_confidence
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, RESULTS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # as on a machine without Pillow: an import of it raises
+    total = dict.fromkeys(KERNELS, 0)
+    seconds = {}
+    try:
+        work = os.path.join(root, "run")
+
+        def counted(module, argv, log_path, done=None):
+            if "--test" in argv and "--eval_ema" in argv:
+                argv = argv + ["--save_samples"]  # the dump whose probs (a) holds to sum to 1
+            before = {k: K.launch_counts[k] for k in KERNELS}
+            s = run_digits.run_step(module, argv, log_path, done)
+            got = {k: K.launch_counts[k] - before[k] for k in KERNELS if K.launch_counts[k] != before[k]}
+            want = {k: v for k, v in results_step_launches(module, argv).items() if v}
+            doc = argv[argv.index("--doc") + 1] if "--doc" in argv else module.rsplit(".", 1)[1]
+            if doc == "train_mapping":
+                doc += " " + argv[argv.index("--mlp_idx") + 1]
+            print(f"    {doc}: {s:.1f} s, launches {got}, {gib_now()} after it")
+            assert got == want, (module, argv, got, want)
+            for k, v in got.items():
+                total[k] += v
+            seconds[doc] = s
+            return s
+
+        t0 = time.perf_counter()
+        out = run_results.run(work, "cuda", fast=True, corpus=RESULTS_CORPUS, epochs=RESULTS_EPOCHS, step=counted)
+        seconds["(b) run_results"] = time.perf_counter() - t0
+        print(f"  (b) run_results at epochs {RESULTS_EPOCHS}, corpus {RESULTS_CORPUS} a class, in "
+              f"{seconds['(b) run_results']:.1f} s ({out['steps']} steps): ViT val acc {out['stage1a_vit_val_acc']}, "
+              f"MLPs {out['stage1b_mlp_val_accs']}, guidance mv-acc {out['guidance_mv_acc']}; stage seconds "
+              + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_seconds"].items()))
+        want_rows = {"calib", "calib_ema", "ema", *run_results.suite_dict(True)}
+        assert set(out["reports"]) == want_rows, sorted(out["reports"])
+        for name, r in sorted(out["reports"].items()):
+            n = 2 * RESULTS_CORPUS["validation" if name.startswith("calib") else "testing"]
+            keys = ("majority_vote_accuracy", "mean_confidence_accuracy", "ece", "nll", "brier")
+            print(f"    {name}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys) + f", {r['num_instances']} images")
+            assert r["num_instances"] == n and all(np.isfinite(r[k]) for k in keys), (name, r)
+        dump = np.load(os.path.join(work, "exp", "logs", "test_ema", "samples.npz"))
+        probs = ensemble_confidence(torch.from_numpy(dump["samples"]), out["reports"]["ema"]["temperature"])
+        assert np.isfinite(dump["samples"]).all() and torch.allclose(probs.sum(-1), torch.ones(len(probs)), atol=1e-5)
+        print(f"    test_ema samples {dump['samples'].shape}: finite, probs rows sum to 1 "
+              f"(max |sum - 1| {float((probs.sum(-1) - 1).abs().max()):.2e})")
+        with open(os.path.join(work, "RESULTS_torch.md")) as f:
+            assert "| clean, full 1000-step chain (parity workload) | " in f.read()
+
+        # (a) the corpus that (b) wrote through data/png.py, read back through it
+        ds = os.path.join(work, "synth_ds")
+        rng = np.random.default_rng(0)
+        want = []
+        for _ in range(3):  # training/NORMAL: each image after its label-noise draw
+            rng.random()
+            want.append(make_synth_medical.make_image(0, rng))
+        got = load_split(ds, "ChestXRay", "train").load_indices([0, 1, 2])
+        same = np.array_equal(got, np.stack(want).astype(np.float32) / 255.0)
+        print(f"  (a) {sum(len(fs) for _, _, fs in os.walk(ds)) - 1} PNGs written without Pillow "
+              f"({dir_bytes(ds) / 2**20:.1f} MiB), corpus {out['stage_seconds']['corpus']:.1f} s; the first "
+              f"training images read back equal to the generator's pixels: {same}")
+        assert same
+
+        calls = []
+        again = run_results.run(work, "cuda", fast=True, corpus=RESULTS_CORPUS, epochs=RESULTS_EPOCHS,
+                                step=lambda *a, **k: calls.append(a))
+        print(f"  (b) a second call: {again['steps']} steps run")
+        assert again["steps"] == 0 and not calls and again["reports"] == out["reports"]
+        shutil.rmtree(work)
+        free_memory()
+
+        # (c) the serving decomposition at batch 70
+        K.launch_counts.clear()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            assert profile_serving.main(["--batch", "70", "--reps", str(PROFILE_REPS), "--int8", "--pallas_int8",
+                                         "--int8_encode"]) == 0
+        seconds["(c) profile_serving"] = time.perf_counter() - t0
+        lines = printed.getvalue().strip().splitlines()
+        record = json.loads(lines[-1])
+        got = {k: K.launch_counts[k] for k in KERNELS if K.launch_counts[k]}
+        print(f"  (c) profile_serving --batch 70 --reps {PROFILE_REPS} (int8, K4, K5, int8 encode) in "
+              f"{seconds['(c) profile_serving']:.1f} s on {lines[-2]}: {json.dumps(record)}; launches {got}")
+        assert lines[-2] == gpu_line() and record["batch"] == 70
+        assert all(np.isfinite(v) and v > 0 for k, v in record.items() if not k.startswith("fixed_cost")), record
+        assert got == profile_launches(PROFILE_REPS), (got, profile_launches(PROFILE_REPS))
+        for k, v in got.items():
+            total[k] += v
+    finally:
+        if pil is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = pil
+        shutil.rmtree(root, ignore_errors=True)
+    print("  phase 13 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return total
+
+
+def check_phase13_shapes(entries):
+    """After phase 13 (not counted): K1, K3, K5a and K5b at the evidence
+    run's test batch of 70 (20 trials: 1400 rows a member, 5 members), in
+    bf16 and in float32, against their plain versions at phase 2's
+    tolerances, with their times, bounds and, for K3, SDPA's: K1 lin1 (5,
+    1400, 4) -> 4096 (the float32 gate) and lin2/lin3 (5, 1400, 4096) ->
+    4096; K3 at (70, 196|197, 12, 64); K5a and K5b at (5, 1400, 4096), the
+    rows profile_serving's K5 scan gives them (bf16 on the card) and phase
+    2's float32 rows. ``phase13`` lists each record."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    by_name = {e["name"]: e for e in entries}
+    bf16, f32 = torch.bfloat16, torch.float32
+    rate = {bf16: BF16_FLOP_PER_S, f32: FP32_FLOP_PER_S}
+    m, r, f_ = 5, 70 * 20, 4096
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=f32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    def held(name, label, fn, plain, inputs, work, tol, library=None):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(compare(f"{name} {label}" + (f" output {i}" if len(got) > 1 else ""), a_, b_, tol)
+                  for i, (a_, b_) in enumerate(zip(got, want)))
+        rec = dict(max_abs_err=err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 10), library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound((*inputs, *got), *work)
+        if library is not None:
+            rec["library_ms"] = cuda_ms(library, 20, spin=8_000_000)
+        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})" + ("" if library is None else f" library_ms={rec['library_ms']:.4f}"))
+        by_name[name].setdefault("phase13", {})[label] = rec
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    feats = rnd(m, r, f_)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+        y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=dtype)
+        w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=dtype)
+        args = (y_in, w1, a, c, feats)
+        held("fused_linear_act", f"lin1 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32",
+             lambda: K.fused_linear_act(*args), lambda: K.fused_linear_act_plain(*args), args,
+             [(2 * m * r * 4 * f_, rate[dtype])], tol)
+        h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
+        w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=dtype)
+        args2 = (h, w, a, c, None)
+        held("fused_linear_act", f"lin2/lin3 {tuple(h.shape)}x{tuple(w.shape)} {str(dtype)[6:]}",
+             lambda: K.fused_linear_act(*args2), lambda: K.fused_linear_act_plain(*args2), args2[:4],
+             [(2 * m * r * f_ * f_, rate[dtype])], tol)
+    b, h_, d = 70, 12, 64
+    for n in (196, 197):  # the taps' bare patches; the classifier's patches and cls token
+        for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+            qkv = rnd(b, n, 3, h_, d, lo=-2.0, hi=2.0, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            held("flash_attention", f"{(b, n, h_, d)} {str(dtype)[6:]}", lambda: K.flash_attention(q, k, v),
+                 lambda: K.flash_attention_plain(q, k, v), (q, k, v), [(4 * b * h_ * n * n * d, rate[dtype])], tol,
+                 library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    # K5: the int8 codes and their sums are exact; h differs where softplus
+    # rounds apart, by one bf16 step in the bf16 rows
+    w_q, w_scale = Q.quantize_weight(rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5))
+    s, colsum = (w_scale * a).contiguous(), w_q.sum(dim=1, dtype=torch.int32).float()
+    for dtype, tol in ((f32, 1e-3), (bf16, 2e-2)):
+        f, label = feats.to(dtype), str(dtype)[6:]
+        y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=dtype)
+        w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=dtype)
+        args = (f, y_in, w1, a, c, w_q, s, c)
+        held("int8_eps_fused_l12", f"f{tuple(f.shape)} {label}, w2{tuple(w_q.shape)} int8",
+             lambda: K.int8_eps_l12(*args), lambda: K.int8_eps_l12_plain(*args), args,
+             [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * 4 * f_, FP32_FLOP_PER_S)], tol)
+        h2 = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
+        hmax2 = h2.float().amax(-1, keepdim=True).contiguous()
+        w4 = rnd(m, f_, 2, lo=-f_**-0.5, hi=f_**-0.5, dtype=dtype)
+        args2 = (h2, hmax2, w_q, s, c, colsum, w4)
+        held("int8_eps_fused_l34", f"h2{tuple(h2.shape)} {label}, w3{tuple(w_q.shape)} int8, w4{tuple(w4.shape)}",
+             lambda: K.int8_eps_l34(*args2), lambda: K.int8_eps_l34_plain(*args2), args2,
+             [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * f_ * 2, FP32_FLOP_PER_S)], tol)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available: this script runs only on an NVIDIA card")
@@ -2889,6 +3170,16 @@ def main() -> int:
     check_phase12_shapes(entries)
     print(f"  phase 12 in {time.perf_counter() - t12:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
           f"launches {digits_launches}")
+    print(f"== phase 13: the evidence pipeline at full width without Pillow: (a) the synthetic corpus, "
+          f"(b) run_results, (c) profile_serving [{time.perf_counter() - start:.0f} s]")
+    free_memory()
+    t13 = time.perf_counter()
+    results_launches = run_results_phase()
+    t = time.perf_counter()
+    print("  phase 13's kernels against their plain versions at the batch-70 shapes (not counted)")
+    check_phase13_shapes(entries)
+    print(f"  phase 13 in {time.perf_counter() - t13:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
+          f"launches {results_launches}")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
@@ -2899,8 +3190,9 @@ def main() -> int:
         e["phase10_launches"] = phase10_launches.get(e["name"], 0)
         e["phase11_launches"] = mesh_launches.get(e["name"], 0)
         e["phase12_launches"] = digits_launches.get(e["name"], 0)
+        e["phase13_launches"] = results_launches.get(e["name"], 0)
         if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"],
-                 e["phase11_launches"], e["phase12_launches"]):
+                 e["phase11_launches"], e["phase12_launches"], e["phase13_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 

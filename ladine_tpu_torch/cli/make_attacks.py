@@ -9,9 +9,11 @@ the adversarial images back as such a tree:
     python -m ladine_tpu_torch.cli.make_attacks --dataroot /data/chestxray \\
         --attack_name PGD --epsilon 0.03 --guidance_ckpt ./models/vit_ChestXRay
 
-Output: ``{dataroot}/Test_attacks_{name}/{class}/{i}.png``. The PNGs are
-written with Pillow, imported by the writer; without Pillow the command
-exits non-zero with a message before it attacks anything.
+Output: ``{dataroot}/Test_attacks_{name}/{class}/{i}.png``, written by
+``data/png.py`` (no Pillow needed). Test images that need Pillow to decode
+(another size or format than ``data/png.py`` reads) make the command exit
+non-zero with a message, before it attacks anything, where Pillow is not
+installed.
 """
 
 from __future__ import annotations
@@ -48,13 +50,9 @@ def main(argv=None) -> int:
     from ladine_tpu_torch.device import cli_device
 
     dev = cli_device(args.device)
-    from ladine_tpu_torch.data.imagefolder import png_writer
+    from ladine_tpu_torch.data.imagefolder import pillow_missing_for, png_writer
 
-    try:
-        write = png_writer()
-    except ImportError:
-        raise SystemExit("make_attacks writes PNG files with Pillow, which is not installed here; install "
-                         "Pillow or run where it is") from None
+    write = png_writer()
 
     from ladine_tpu_torch.attacks import make_attack
     from ladine_tpu_torch.data import open_dataset
@@ -98,6 +96,9 @@ def main(argv=None) -> int:
 
     ds = open_dataset(args.dataset, args.dataroot, "test",
                       "raw" if args.preprocess == "standardized" else args.preprocess, image_size=(img, img))
+    if pillow_missing_for(getattr(ds, "paths", ()), (img, img)):
+        raise SystemExit("these images need Pillow to decode or resize (data/png.py reads 8-bit PNGs at the "
+                         "target size), and it is not installed here; install Pillow or run where it is")
     out_root = args.out or os.path.join(args.dataroot, f"Test_attacks_{args.attack_name}")
     counts = {str(c): 0 for c in ds.classes}
     n_success = n_total = 0

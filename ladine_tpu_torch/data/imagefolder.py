@@ -1,11 +1,15 @@
 """ImageFolder data pipeline: directory-tree datasets -> batched NHWC arrays.
 
 The port's own copy of ``ladine_tpu/data/imagefolder.py``, in place of the
-reference's torchvision ImageFolder + DataLoader: PIL decode and resize in
+reference's torchvision ImageFolder + DataLoader: decode and resize in
 a thread pool, batches prefetched in the background so that host IO
-overlaps the card's work, channel-last float32 numpy output. PIL (Pillow)
-is imported only when an image is decoded; a machine without it can read
-array corpora (``data/downloads.py``) but not ImageFolder trees.
+overlaps the card's work, channel-last float32 numpy output. Images are
+decoded by PIL (Pillow) where it imports. Where it does not, a PNG already
+at the target size in the 8-bit L, RGB or RGBA formats (what
+``data/png.py`` writes) is decoded by ``data/png.py`` with Pillow's
+pixels, and any other image raises PIL's ``ImportError``: a machine
+without Pillow reads array corpora (``data/downloads.py``) and such PNG
+trees.
 
 Semantics kept:
 * class indices by sorted directory name (torchvision's rule);
@@ -26,6 +30,7 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ladine_tpu_torch.data import png
 from ladine_tpu_torch.data.constants import IMAGE_SIZE, NORM_STATS
 
 # torchvision IMG_EXTENSIONS (datasets/folder.py) — .tif/.ppm/.pgm matter for
@@ -45,11 +50,9 @@ def _find_classes(directory: str) -> List[str]:
 
 
 def png_writer():
-    """``write(array (H, W, C) uint8, path)``, a PNG through Pillow (imported
-    here: an ImportError without it)."""
-    from PIL import Image
-
-    return lambda arr, path: Image.fromarray(arr).save(path)
+    """``write(array (H, W, C) uint8, path)``: a PNG through ``data/png.py``
+    (no Pillow needed)."""
+    return png.write
 
 
 def _list_samples(directory: str) -> Tuple[List[str], np.ndarray, List[str]]:
@@ -66,10 +69,37 @@ def _list_samples(directory: str) -> Tuple[List[str], np.ndarray, List[str]]:
     return paths, np.asarray(labels, np.int64), classes
 
 
+def png_at_size(path: str, size: Tuple[int, int]) -> bool:
+    """Whether ``data/png.py`` reads ``path`` at ``size``: an in-scope PNG
+    stored at that size (Pillow's resize to the stored size is a copy, so
+    its pixels are PIL's)."""
+    if not path.lower().endswith(".png"):
+        return False
+    header = png.read_header(path)
+    return header is not None and header.in_scope and (header.height, header.width) == tuple(size)
+
+
+def pillow_missing_for(paths: Sequence[str], size: Tuple[int, int]) -> bool:
+    """True where Pillow does not import and one of ``paths`` needs it at
+    ``size`` (another size or format than ``data/png.py`` reads)."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return not all(png_at_size(p, size) for p in paths)
+    return False
+
+
 def _load_image(
     path: str, size: Tuple[int, int], grayscale: bool
 ) -> np.ndarray:
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        if not png_at_size(path, size):
+            raise
+        pixels = png.read(path)
+        pixels = png.to_grayscale_rgb(pixels) if grayscale else png.to_rgb(pixels)
+        return np.asarray(pixels, np.float32) / 255.0
 
     with Image.open(path) as img:
         if grayscale:

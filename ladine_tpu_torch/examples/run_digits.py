@@ -89,7 +89,8 @@ def run_step(module: str, argv: list, log_path: str, done: Optional[Callable[[],
         with open(log_path) as f:
             tail = f.read()[-3000:]
         raise RuntimeError(f"step {module} failed (rc={rc}, artifact complete: {done is None or done()}):\n{tail}")
-    print(f"[run] rc=0 ({seconds:.1f} s)", file=sys.stderr)
+    held = f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated" if torch.cuda.is_available() else ""
+    print(f"[run] rc=0 ({seconds:.1f} s{held})", file=sys.stderr)
     return seconds
 
 

@@ -19,6 +19,7 @@ the model: the float weights stay as they are.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -130,6 +131,21 @@ def _state(src) -> Mapping[str, torch.Tensor]:
     return src.state_dict() if isinstance(src, torch.nn.Module) else src
 
 
+def no_grad_if_enabled(fn):
+    """``torch.no_grad()`` around ``fn`` where grad is on, and nothing where
+    it is off already: ``torch.export`` records each grad-mode switch it
+    traces as a node and re-emits the whole graph for each one, which for a
+    switch in every step of a chain was most of an int8 program's export."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
 @torch.no_grad()
 def quantize_member(model) -> Int8Layers:
     """int8 lin2 and lin3 of a stacked ``ConditionalModel`` (or of its state
@@ -161,7 +177,7 @@ def _folded(model, t, table):
     return fold_table(model, t) if table is None else tuple((a[t], c[t]) for a, c in table)
 
 
-@torch.no_grad()
+@no_grad_if_enabled
 def int8_eps(model, q: Int8Layers, f: torch.Tensor, y: torch.Tensor, t: int,
              y_hat: torch.Tensor, table=None) -> torch.Tensor:
     """eps with int8 lin2/lin3 (:func:`int8_matmul`); lin1, lin4 and the
@@ -196,7 +212,7 @@ def _bn_eval_affine(dense_bias, bn):
     return inv, (dense_bias.float() - bn.running_mean) * inv + bn.bias
 
 
-@torch.no_grad()
+@no_grad_if_enabled
 def int8_encode(model, x: torch.Tensor, qenc=None) -> torch.Tensor:
     """``ConditionalModel.encode`` with int8 enc_lin1 (symmetric
     activations): (B, D) flat images -> (M, B, F) float32. ``qenc`` is
@@ -226,7 +242,7 @@ def quantize_mapping_heads(guidance, mlp_ids: Sequence[int]) -> Dict[int, Tuple[
     }
 
 
-@torch.no_grad()
+@no_grad_if_enabled
 def int8_mapping_heads(guidance, taps: torch.Tensor, mlp_ids: Sequence[int],
                        qheads=None) -> torch.Tensor:
     """Mapping heads with int8 first layers (symmetric activations), the

@@ -25,7 +25,7 @@ import torch
 from torch import Tensor
 
 from ladine_tpu_torch.kernels import _build
-from ladine_tpu_torch.kernels.int8 import Int8Layers, _folded, div, quantize_rows, softplus
+from ladine_tpu_torch.kernels.int8 import Int8Layers, _folded, div, no_grad_if_enabled, quantize_rows, softplus
 from ladine_tpu_torch.kernels.int8_linear import (
     check_activations,
     check_weight,
@@ -249,7 +249,7 @@ def _l34_launch(h2, hmax2, w_q3, s3, c3, colsum3, w4):
     return out
 
 
-@torch.no_grad()
+@no_grad_if_enabled
 def int8_eps_pallas_fused(model, q: Int8Layers, f: torch.Tensor, y: torch.Tensor, t: int,
                           y_hat: torch.Tensor, table=None) -> torch.Tensor:
     """eps as two K5 launches: (M, R, F) f, (M, R, C) y and y_hat ->

@@ -28,6 +28,7 @@ from ladine_tpu_torch.kernels.int8 import (
     _lin4,
     div,
     int_matmul,
+    no_grad_if_enabled,
     quantize_rows,
     softplus,
 )
@@ -183,7 +184,7 @@ def _launch(x, xmax, w_q, s, c, colsum):
     return h, hmax
 
 
-@torch.no_grad()
+@no_grad_if_enabled
 def int8_eps_pallas(model, q: Int8Layers, f: torch.Tensor, y: torch.Tensor, t: int,
                     y_hat: torch.Tensor, table=None) -> torch.Tensor:
     """eps with lin2 and lin3 as K4 launches: (M, R, F) f, (M, R, C) y and

@@ -242,14 +242,18 @@ def mlp_from_flax(variables) -> Dict[str, torch.Tensor]:
     return _from_flax(variables, _mlp_table(len(variables["params"])))
 
 
-def guidance_to_flax(state_dict) -> Dict[str, Any]:
-    """The port's ``SEViTGuidance`` state_dict -> flax variables."""
+def _guidance_port_table(state_dict) -> List[_Entry]:
     table = _walk_from_port(state_dict, 0, "vit.", ("vit",))
     heads = sorted({int(k.split(".")[1]) for k in state_dict if k.startswith("mlps.")})
     for i in heads:
         n_layers = sum(k.startswith(f"mlps.{i}.") and k.endswith(".weight") for k in state_dict)
         table += _mlp_table(n_layers, f"mlps.{i}.", ("params", f"mlp{i}"))
-    return _flax_tree(state_dict, table)
+    return table
+
+
+def guidance_to_flax(state_dict) -> Dict[str, Any]:
+    """The port's ``SEViTGuidance`` state_dict -> flax variables."""
+    return _flax_tree(state_dict, _guidance_port_table(state_dict))
 
 
 def _flax_members_table(variables) -> List[_Entry]:
@@ -264,12 +268,24 @@ def members_from_flax(stacked_vars) -> Dict[str, torch.Tensor]:
     return _from_flax(stacked_vars, _flax_members_table(stacked_vars))
 
 
+def _members_port_table(state_dict) -> List[_Entry]:
+    conv = any(k.startswith("encoder_x.") for k in state_dict)
+    return _members_table(_walk_from_port(state_dict, 1, "encoder_x.", ("encoder_x",)) if conv else ())
+
+
 def members_to_flax(state_dict) -> Dict[str, Any]:
     """The port's stacked ``ConditionalModel`` state_dict -> member-stacked
     flax variables."""
-    conv = any(k.startswith("encoder_x.") for k in state_dict)
-    encoder = _walk_from_port(state_dict, 1, "encoder_x.", ("encoder_x",)) if conv else ()
-    return _flax_tree(state_dict, _members_table(encoder))
+    return _flax_tree(state_dict, _members_port_table(state_dict))
+
+
+def flax_leaf_order(state_dict, kind: str) -> List[str]:
+    """The keys of an ``SEViTGuidance`` (``kind="guidance"``) or stacked
+    ``ConditionalModel`` (``kind="members"``) state_dict in the order of
+    their flax leaves, as ``jax.tree.map`` visits a variable tree (keys
+    sorted at every level)."""
+    table = _guidance_port_table(state_dict) if kind == "guidance" else _members_port_table(state_dict)
+    return [key for key, _, _ in sorted(table, key=lambda e: e[1])]
 
 
 # ---------------------------------------------------------------- train states

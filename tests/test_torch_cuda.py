@@ -176,6 +176,25 @@ def test_fused_linear_act_mma_body_at_any_row_count(cuda, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", ["lin1", "lin2"])
+def test_fused_linear_act_at_the_evidence_test_batch(cuda, dtype, layer):
+    """The evidence run's test batch: 70 images x 20 trials = 1400 rows a
+    member, five members; lin1 (K = 4, the float32 features as the gate:
+    ``small_k``) and lin2/lin3 (K = N = 4096: ``mma`` in bf16, ``simt`` in
+    float32)."""
+    k = 4 if layer == "lin1" else 4096
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(21), 5, 1400, k, 4096))
+    x, w = x.to(dtype), w.to(dtype)
+    gate = mult if layer == "lin1" else None
+    launch_counts.clear()
+    out = fused_linear_act(x, w, a, c, gate)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_linear_act"] == 1 and out.dtype == dtype and out.shape == (5, 1400, 4096)
+    _close(out, fused_linear_act_plain(x, w, a, c, gate), 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [2, 4, 16])
 @pytest.mark.parametrize("shape", [(5, 160, 4096), (2, 9, 17)], ids=["path", "ragged-N"])
 def test_fused_linear_act_small_k_body_matches_plain(cuda, dtype, k, shape):

@@ -4,8 +4,10 @@ from a flax init, carried by ``utils/convert.py``) over a tiny ImageFolder
 test split written here, in both packages. The two trees hold the same
 files, and each PNG equals the other's to within one uint8 level (the
 images are rounded to uint8 after float32 arithmetic that sums in other
-orders). Without Pillow the command exits non-zero with a message, before
-it attacks anything.
+orders). The port writes its PNGs through ``data/png.py``: without Pillow
+it writes the same tree from PNGs at the target size, and exits non-zero
+with a message, before it attacks anything, where the images need Pillow
+to be resized.
 """
 
 import json
@@ -73,9 +75,27 @@ def test_fgsm_trees_match_the_jax_cli(corpus, capsys):
 
 
 def test_without_pillow_the_command_exits_with_a_message(corpus, monkeypatch):
+    """Images stored at 16 px and attacked at 32 need Pillow's resize."""
     monkeypatch.setitem(sys.modules, "PIL", None)  # as on a machine without Pillow
     with pytest.raises(SystemExit) as e:
         port_cli.main(["--dataroot", str(corpus / "data"), "--attack_name", "FGSM", "--demo", "--device", "cpu",
-                       "--image_size", str(IMG), "--out", str(corpus / "never")])
+                       "--image_size", str(2 * IMG), "--out", str(corpus / "never")])
     assert "Pillow" in str(e.value.code)
     assert not os.path.exists(corpus / "never")
+
+
+def test_without_pillow_the_command_writes_the_same_tree(corpus, monkeypatch):
+    """At the stored size the port reads and writes its PNGs without
+    Pillow: the tree equals the one it writes with Pillow importable."""
+    argv = ["--dataroot", str(corpus / "data"), "--attack_name", "FGSM", "--epsilon", "0.03", "--demo",
+            "--image_size", str(IMG), "--batch_size", "4", "--device", "cpu",
+            "--guidance_ckpt", str(corpus / "port_vit")]
+    assert port_cli.main(argv + ["--out", str(corpus / "with_pil")]) == 0
+    with_pil = _pngs(corpus / "with_pil")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert port_cli.main(argv + ["--out", str(corpus / "without_pil")]) == 0
+    monkeypatch.undo()
+    without = _pngs(corpus / "without_pil")
+    assert sorted(without) == sorted(with_pil) and len(without) == 6
+    for name, img in with_pil.items():
+        assert np.array_equal(without[name], img), name
