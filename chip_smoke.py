@@ -14,10 +14,12 @@ Phases, each fatal on failure (no failure is caught):
    stated tolerance, the kernel's time, the plain version's time, the
    card's bound for the same work and, for attention, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (never called by
-   the port). K1 is timed at lin2/lin3 (its ``mma`` body) and lin1 (its
-   ``small_k`` body, a sub-record), beside ``torch.bmm`` on the lin2/lin3
-   shapes as a GEMM-only yardstick (``cublas_gemm_ms``, never called by the
-   port), and its ``mma`` body also at 20 and 1400 rows a member.
+   the port). K1 is timed at lin2/lin3 (its ``wgmma`` body) and lin1 (its
+   ``small_k`` body, a sub-record), and its lin2/lin3 body also at 20 and
+   1400 rows a member, each row beside ``torch.bmm`` on the same shapes as
+   a GEMM-only yardstick (``cublas_gemm_ms``, never called by the port),
+   with its body and its schedule (``fused_linear.wgmma_plan``: blocks,
+   waves, the split remainder's chunks, the busy share).
    The int8 kernels (K4 int8_linear_softplus in both schemes, K5a/K5b
    int8_eps_fused_l12/_l34) also print one layer of the ``torch._int_mm``
    int8 path as a yardstick, and their bounds use the int8 rate; K4 is
@@ -329,7 +331,7 @@ def check_kernels():
     def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
         return torch.empty(*shape, device=dev).uniform_(lo, hi, generator=g).to(dtype)
 
-    # K1 at lin2/lin3 (K = N = 4096, the mma body), with and without a bf16
+    # K1 at lin2/lin3 (K = N = 4096, the wgmma body), with and without a bf16
     # gate, and lin1 (K = 4, the small_k body) gated by the float32 features
     h = rnd(M, R, F_, lo=0.0, hi=2.0, dtype=bf16)
     w = rnd(M, F_, F_, lo=-F_**-0.5, hi=F_**-0.5, dtype=bf16)
@@ -353,27 +355,38 @@ def check_kernels():
         k1[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          shape=f"x{tuple(x_.shape)} w{tuple(w_.shape)} bf16"
                                + ("" if m_ is None else f", gate {str(m_.dtype)[6:]}"))
-    # yardstick, never called by the port: the GEMM alone (no epilogue) in cuBLAS
-    cublas_gemm_ms = cuda_ms(lambda: torch.bmm(h, w), 20)
-    print(f"    yardstick: torch.bmm {tuple(h.shape)}x{tuple(w.shape)} (cuBLAS, GEMM only) "
-          f"{cublas_gemm_ms:.4f} ms")
-    # the mma body at other row counts (batch 1 and batch 70 of the JAX bench):
-    # how its time follows the x re-reads (rows) against the weight stream (fixed)
-    rows_ms, errs = {str(R): k1["lin2/lin3"]["ms"]}, [v["max_abs_err"] for v in k1.values()]
-    for rows in (20, 1400):
-        hx = rnd(M, rows, F_, lo=0.0, hi=2.0, dtype=bf16)
+    # the lin2/lin3 body at 20, 160 and 1400 rows a member (batch 1, 8 and the
+    # evidence batch 70): its time against the weight stream (fixed) and the
+    # x re-reads (rows), its schedule (fused_linear.wgmma_plan) and, as a
+    # yardstick never called by the port, the GEMM alone (no epilogue) in cuBLAS
+    errs = [v["max_abs_err"] for v in k1.values()]
+    rows = {}
+    for r_ in (20, R, 1400):
+        hx = h if r_ == R else rnd(M, r_, F_, lo=0.0, hi=2.0, dtype=bf16)
         args = (hx, w, a, c, None)
-        out = K.fused_linear_act(*args)
-        torch.cuda.synchronize()
-        errs.append(compare(f"fused_linear_act lin2/lin3 at R={rows}", out, K.fused_linear_act_plain(*args), tol))
-        rows_ms[str(rows)] = cuda_ms(lambda: K.fused_linear_act(*args), 20)
-        b_ms, b_by = bound((*args, out), (2 * M * rows * F_ * F_, BF16_FLOP_PER_S))
-        print(f"    ms={rows_ms[str(rows)]:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        body = fused_linear.plan(bf16, F_, F_, True)[0]
+        p = fused_linear.wgmma_plan(M, r_, F_, F_)
+        if r_ == R:
+            ms, b_ms, b_by = (k1["lin2/lin3"][key] for key in ("ms", "bound_ms", "bound_by"))
+        else:
+            out = K.fused_linear_act(*args)
+            torch.cuda.synchronize()
+            errs.append(compare(f"fused_linear_act lin2/lin3 at R={r_} body={body}", out,
+                                K.fused_linear_act_plain(*args), tol))
+            ms = cuda_ms(lambda: K.fused_linear_act(*args), 20)
+            b_ms, b_by = bound((*args, out), (2 * M * r_ * F_ * F_, BF16_FLOP_PER_S))
+        bmm_ms = cuda_ms(lambda: torch.bmm(hx, w), 20)
+        rows[str(r_)] = dict(body=body, ms=ms, bound_ms=b_ms, bound_by=b_by, bmm_ms=bmm_ms, grid=p.grid,
+                             tiles=p.tiles, chunks=p.chunks, waves=p.waves, busy=p.busy)
+        print(f"    R={r_}: body={body} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) torch.bmm (cuBLAS, GEMM only) "
+              f"{bmm_ms:.4f}; plan: {p.tiles} tiles on {p.grid} blocks, {p.waves} wave(s), the last "
+              f"{p.tiles % p.grid or p.grid} tiles in {p.chunks} K-chunk(s), busy {p.busy:.4f}")
     # the lin2/lin3 shape carries nearly all of the path's work; lin1 rides as a sub-record
     entries.append(dict(
         name="fused_linear_act", route="cuda", source="ladine_tpu_torch/csrc/fused_linear.cu",
-        replaces="ladine_tpu/kernels/fused_linear.py:66", library_ms=None, cublas_gemm_ms=cublas_gemm_ms,
-        **k1["lin2/lin3"], gate_ms=k1["lin2 + gate"]["ms"], rows_ms=rows_ms, lin1=k1["lin1"]))
+        replaces="ladine_tpu/kernels/fused_linear.py:66", library_ms=None,
+        cublas_gemm_ms=rows[str(R)]["bmm_ms"], **k1["lin2/lin3"], gate_ms=k1["lin2 + gate"]["ms"],
+        rows=rows, lin1=k1["lin1"]))
     entries[-1]["max_abs_err"] = max(errs)
 
     # K3 on the strided q/k/v slices of a fused qkv projection

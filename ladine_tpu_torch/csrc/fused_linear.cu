@@ -8,7 +8,7 @@
 // (bodies _kernel and _kernel_mult). It is the eps layer of every reverse
 // diffusion step: lin1 (K = 2C = 4, with the f gate as mult), lin2 and lin3
 // (K = N = 4096), 3 launches a step. The member axis is in the grid: one
-// launch covers all members. Three bodies, chosen by the wrapper from the
+// launch covers all members. Four bodies, chosen by the wrapper from the
 // shape and dtype (kernels/fused_linear.py::plan):
 //
 // small_k (K <= 16, both dtypes; lin1 up to 8 classes). An outer product and an elementwise
@@ -26,28 +26,69 @@
 // loads of it in flight: 4 rows a thread, with w, a and c read once for them,
 // was faster with mult in L2 and slower on the path.
 //
-// mma (K > 16, bf16; lin2 and lin3, and lin1 above 8 classes). At R = 160 rows a member the call reads
-// each member's 4096 x 4096 weight once, 168 MB (0.050 ms at 3.35 TB/s; 0.054
-// ms with x, mult and out), against 27 GFLOP (0.027 ms at 989 TFLOP/s): the
-// weight bytes bound it, and the cost is reading the same bytes more than
-// once. So a tile covers BM = 160 rows, every row of a member at batch 8: each
-// weight strip leaves device memory once (larger R takes more row tiles).
-// Every column tile re-reads its member's x (1.3 MB) from L2, so the tile is
-// BN = 128 wide, which halves those re-reads against 64; so that the grid
-// keeps 320 blocks (2 an SM: 128 registers a thread, 86 KB of shared memory),
-// a cluster of 2 blocks splits K in two halves for one tile and the partial
-// fp32 tiles are summed through distributed shared memory before the
-// epilogue. 8 warps of 80 rows x 32 columns; K streams in steps of 32
-// through a 4-stage ring of cp.async copies, so the loads of the next steps
-// are in flight while one is multiplied. Fragments come from shared memory by
-// ldmatrix (.trans for w's row-major K x N tile) into mma.sync.m16n8k16. The
-// epilogue runs in registers on the accumulator fragments (a, c, softplus,
-// mult, bf16 store): no shared C tile. Its gate mult is bf16 (lin2's h1) or
-// fp32: lin1 at C > 8 classes (K = 2C > 16, 20 at the 10-class digits
-// config) leaves small_k for this body with the fp32 features as its gate,
-// read in fp32 as the TPU kernel reads them. Ragged R, N and K are
-// zero-filled; where K or N is not a multiple of 8 or a pointer is not
-// 16-byte aligned, tiles are staged element by element.
+// wgmma (K > 16, bf16, K and N multiples of 8, 16-byte aligned pointers: the
+// shapes a TMA tensor map describes; lin2 and lin3, K = N = 4096, the
+// `_kernel` body of ladine_tpu/kernels/fused_linear.py:66). What bounds it: at R = 160 rows a member (batch 8 x 20 trials) the call reads each
+// member's 4096 x 4096 weight once, 168 MB (0.050 ms at 3.35 TB/s; 0.054 ms
+// with x and out) against 27 GFLOP (0.027 ms at 989 TFLOP/s): the bytes. At
+// R = 1400 (the evidence batch 70) it does 235 GFLOP (0.2375 ms) against
+// 225 MB (0.067 ms): the operations. Its design:
+//  - Copies by TMA. One thread of a producer warpgroup (setmaxnreg gives its
+//    registers to the consumers) loads each K step of BK = 64 as 64 x 64
+//    boxes with the 128-byte swizzle (tma_wgmma.cuh): x's live 64-row slabs
+//    and w's two 64-column boxes, into a ring of 4 stages of 40 KB, with a
+//    full and an empty mbarrier a stage; a consumer hands a stage back as
+//    soon as its products have read it. Out-of-range rows, columns and K
+//    arrive as zeros. In flight: 4 x 16 KB of w an SM, 8.4 MB on 132 SMs,
+//    against the ~3.3 MB that 3.35 TB/s x ~1 us of latency needs (25 KB an
+//    SM). The tensor maps are __grid_constant__ parameters, so a CUDA graph
+//    captures them with the launch; cuTensorMapEncodeTiled comes from the
+//    CUDA driver through cudaGetDriverEntryPoint (no -lcuda).
+//  - wgmma.m64n128k16 consumers: three warpgroups, one 64-row slab of a 192
+//    x 128 tile each (x K-major, w MN-major as wgmma takes it in 16 bits),
+//    fp32 accumulators in registers; a slab wholly past R is not loaded or
+//    multiplied.
+//  - A grid that fills the card: min(132, tiles) persistent blocks, one an
+//    SM (164,992 bytes of shared memory). Block b runs tiles b, b + grid, ...
+//    (row tile fastest) whole, a round at a time, every block of a round at
+//    the same K step; the tiles % grid tiles of the last round are split in
+//    K into chunks = grid / (tiles % grid) equal parts, one a block, so the
+//    last round is a chunk deep. At K = N = 4096 (160 tiles a row tile):
+//    R = 20 and 160 (one row tile: each weight strip leaves device memory
+//    once) run 132 whole tiles, then the other 28 in quarters on 112 blocks:
+//    2 waves, the second a quarter deep, 97.0 % of block-steps busy. R = 1400
+//    (8 row tiles, 1280 tiles) runs 9 waves of 132 and one of 92 (97.0 %),
+//    the 8 row tiles of a strip on neighbouring blocks at once, so the strip
+//    is read from device memory about once a wave and from L2 after.
+//  - Deterministic. A block that runs a chunk of a split tile writes its
+//    fp32 partial tile to the workspace and counts itself in (an integer
+//    atomic); the last of the tile's blocks reads the partials back in chunk
+//    order and runs the epilogue, so the sum's order is fixed by the shape
+//    whoever finishes last, and no block waits for another. No float
+//    atomics: a parity request replays bit for bit.
+//  - The epilogue in registers on the accumulator fragments (a, c,
+//    softplus, the bf16 or fp32 gate, bf16 pairs stored), as the mma body's.
+// Each column tile re-reads its member's x from L2 (1.3 MB at R = 160, 210
+// MB a call), beside the 168 MB weight stream. At R = 20, where x and the
+// products are small, a call is the weight stream alone: on an H100 SXM at
+// 700 W it takes 0.078 ms, 2.15 TB/s, with 8.4 MB in flight and 97 % of
+// the blocks busy, so neither the ring's depth nor the waves hold it back
+// but the rate at which device memory serves each block's 256-byte row
+// segments (chip_smoke.py phase 2 times it beside torch.bmm).
+//
+// mma (K > 16, bf16, the shapes wgmma does not take: K or N not a multiple
+// of 8 (lin1 at 10 classes: K = 20), a pointer off 16 bytes). Tiles of 160
+// rows x 128 columns, a cluster of 2 blocks splitting K in two halves for
+// one tile, the partial fp32 tiles summed through distributed shared memory
+// before the epilogue; 8 warps of 80 rows x 32 columns; K streams in steps
+// of 32 through a 4-stage ring of cp.async copies. Fragments come from
+// shared memory by ldmatrix (.trans for w's row-major K x N tile) into
+// mma.sync.m16n8k16. The epilogue runs in registers on the accumulator
+// fragments (a, c, softplus, mult, bf16 store): no shared C tile. Its gate
+// mult is bf16 or fp32 (lin1 above 8 classes leaves small_k for a GEMM body
+// with the fp32 features as its gate, read in fp32 as the TPU kernel reads
+// them). Ragged R, N and K are zero-filled; its tiles are staged element
+// by element (the shapes that would move as 16-byte vectors take wgmma).
 //
 // simt (K > 16, fp32). 64 x 64 tiles of 128 threads, 8 x 4 fp32 FMA outputs
 // each, a 2-stage cp.async ring and the epilogue from a shared fp32 tile. It
@@ -60,6 +101,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -243,8 +285,7 @@ template <typename MT>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(mma_cfg::THREADS, 2)
 fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                         const float* __restrict__ a, const float* __restrict__ c,
-                        const MT* __restrict__ mult, bf16* __restrict__ out, int R, int K, int N,
-                        bool vec) {
+                        const MT* __restrict__ mult, bf16* __restrict__ out, int R, int K, int N) {
   using namespace mma_cfg;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -271,8 +312,8 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   auto load = [&](int slot, int kt) {
     bf16* As = pipe + slot * STAGE_ELEMS;
-    stage<bf16, BM, BK, THREADS>(As, LDA, xm, R, K, row0, k0 + kt * BK, vec);
-    stage<bf16, BK, BN, THREADS>(As + A_ELEMS, LDB, wm, K, N, k0 + kt * BK, col0, vec);
+    stage<bf16, BM, BK, THREADS>(As, LDA, xm, R, K, row0, k0 + kt * BK, false);
+    stage<bf16, BK, BN, THREADS>(As + A_ELEMS, LDB, wm, K, N, k0 + kt * BK, col0, false);
   };
   k_loop<STAGES>(nk, load, [&](int slot) {
     if (!active) return;
@@ -341,19 +382,11 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
           float v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) v[e] = softplus(acc[i][j][2 * hh + e] * av[e] + cv[e]);
-          if (vec) {  // N % 8 == 0: both columns are in range, 4-byte aligned
-            if (mult != nullptr) {
-              float2 mv = load2(mult + o);
-              v[0] *= mv.x, v[1] *= mv.y;
-            }
-            *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v[0], v[1]);
-          } else {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (col + e >= N) continue;
-              if (mult != nullptr) v[e] *= to_f(mult[o + e]);
-              out[o + e] = __float2bfloat16(v[e]);
-            }
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= N) continue;
+            if (mult != nullptr) v[e] *= to_f(mult[o + e]);
+            out[o + e] = __float2bfloat16(v[e]);
           }
         }
     }
@@ -363,7 +396,7 @@ fused_linear_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 template <typename MT>
 int launch_mma(const void* x, const void* w, const void* a, const void* c, const void* mult,
-               void* out, int M, int R, int K, int N, bool vec, cudaStream_t s) {
+               void* out, int M, int R, int K, int N, cudaStream_t s) {
   using namespace mma_cfg;
   cudaError_t err = cudaFuncSetAttribute(fused_linear_mma_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -371,8 +404,214 @@ int launch_mma(const void* x, const void* w, const void* a, const void* c, const
   dim3 grid(2 * ((R + BM - 1) / BM), (N + BN - 1) / BN, M);
   fused_linear_mma_kernel<MT><<<grid, THREADS, SMEM_BYTES, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<bf16*>(out), R, K, N,
-      vec);
+      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<bf16*>(out), R, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- wgmma (bf16, TMA ring) -------------------------------------------------
+
+namespace wg_cfg {
+constexpr int SLABS = 3;                              // consumer warpgroups, one 64-row slab each
+constexpr int BM = 64 * SLABS, BN = 128, BK = 64, STAGES = 4;
+constexpr int THREADS = 128 * (SLABS + 1);            // + the producer warpgroup
+constexpr int BOX_BYTES = 64 * 64 * 2;                // one 64 x 64 bf16 TMA box
+constexpr int STAGE_BYTES = (SLABS + 2) * BOX_BYTES;  // x's slabs, then w's two 64-column boxes
+constexpr int SMEM_BYTES = 128 + 1024 + STAGES * STAGE_BYTES;  // barriers and flag, alignment, ring
+constexpr int PART_FLOATS = SLABS * 64 * BN;          // a block's partial tile in the workspace
+constexpr int FLAG_BYTES = 1024, MAX_GRID = FLAG_BYTES / 4;  // the counts lead the workspace
+}  // namespace wg_cfg
+
+// The schedule of kernels/fused_linear.py::wgmma_plan: tiles of BM rows x BN
+// columns of one member, row tile fastest, each `steps` BK-steps of K deep.
+// Block b runs tiles b, b + grid, ... whole for tiles / grid rounds, all
+// blocks of a round at the same K step; the last tiles % grid tiles are
+// split in K into `chunks` equal parts, chunk q of remainder tile j run by
+// block q * rem + j (so neighbours stay at one K step), and the last of
+// its blocks to finish adds the partial tiles in chunk order.
+struct WgSched {
+  int row_tiles, col_tiles, steps, tiles, grid, chunks;
+};
+
+// The segments of one block in the order it runs them: a tile and the steps
+// [kb, ke) of its K; split: the remainder tile's index, else -1. Producer
+// and consumers walk the same list.
+struct Segments {
+  int round, rounds, rem;
+  __device__ Segments(const WgSched& s) : round(0), rounds(s.tiles / s.grid), rem(s.tiles % s.grid) {}
+  __device__ bool next(const WgSched& s, int& tile, int& kb, int& ke, int& split) {
+    const int b = blockIdx.x;
+    split = -1;
+    if (round < rounds) {
+      tile = b + round++ * s.grid, kb = 0, ke = s.steps;
+      return true;
+    }
+    if (round++ > rounds || b >= rem * s.chunks) return false;
+    const int q = b / rem, j = b % rem;
+    tile = rounds * s.grid + j, kb = q * s.steps / s.chunks, ke = (q + 1) * s.steps / s.chunks;
+    if (s.chunks > 1) split = j;
+    return true;
+  }
+};
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(wg_cfg::SLABS * 128) : "memory");
+}
+
+// Warp-specialised: warpgroups 0 .. SLABS-1 multiply (wgmma) and run the
+// epilogue, the last warpgroup's first thread issues the TMA loads. A block
+// that runs a chunk of a split tile leaves its partial tile in the
+// workspace and counts itself in; the last of the tile's blocks reads the
+// partials back in chunk order and runs the epilogue. No block waits for
+// another.
+template <typename MT>
+__global__ void __launch_bounds__(wg_cfg::THREADS, 1)
+fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                          const float* __restrict__ a, const float* __restrict__ c,
+                          const MT* __restrict__ mult, bf16* __restrict__ out, unsigned char* __restrict__ work,
+                          int R, int N, WgSched s) {
+  using namespace wg_cfg;
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(wg_smem);
+  uint64_t* empty = full + STAGES;
+  int* last = reinterpret_cast<int*>(empty + STAGES);  // this block finishes the split tile
+  const uint32_t base = smem_u32(wg_smem);
+  unsigned char* ring = wg_smem + (((base + 128 + 1023) & ~1023u) - base);  // 1024-aligned for the swizzle
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);              // the producer's expect_tx arrival (+ the bytes)
+      mbar_init(&empty[i], SLABS * 4);     // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int tile, kb, ke, split;
+  if (wg == SLABS) {  // ---- producer
+    regs_dealloc<40>();
+    if (t != 0) return;
+    const CUtensorMap* xm = &xmap;
+    const CUtensorMap* wm = &wmap;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (Segments seg(s); seg.next(s, tile, kb, ke, split);) {
+      const int row0 = (tile % s.row_tiles) * BM, col0 = (tile / s.row_tiles % s.col_tiles) * BN;
+      const int m = tile / (s.row_tiles * s.col_tiles);
+      const int live = min(SLABS, (R - row0 + 63) / 64);  // slabs with a row below R
+      for (int ks = kb; ks < ke; ++ks) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], (live + 2) * BOX_BYTES);
+        for (int q = 0; q < live; ++q) tma_load_3d(st + q * BOX_BYTES, xm, &full[stage], ks * BK, row0 + 64 * q, m);
+        for (int q = 0; q < 2; ++q)
+          tma_load_3d(st + (SLABS + q) * BOX_BYTES, wm, &full[stage], col0 + 64 * q, ks * BK, m);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+    }
+  } else {  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+    regs_alloc<152>();
+    const int warp = t / 32, lane = t % 32;
+    int* flags = reinterpret_cast<int*>(work);
+    float* part = reinterpret_cast<float*>(work + FLAG_BYTES) + wg * 64 * BN + t;  // value v at + v * 128
+    float acc[64];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (Segments seg(s); seg.next(s, tile, kb, ke, split);) {
+      const int row0 = (tile % s.row_tiles) * BM + 64 * wg, col0 = (tile / s.row_tiles % s.col_tiles) * BN;
+      const int m = tile / (s.row_tiles * s.col_tiles);
+      const bool live = row0 < R;  // warpgroup-uniform; a dead slab only keeps the ring turning
+#pragma unroll
+      for (int v = 0; v < 64; ++v) acc[v] = 0.f;
+      for (int ks = kb; ks < ke; ++ks) {
+        mbar_wait(&full[stage], phase);
+        if (live) {
+          const uint32_t st = smem_u32(ring + stage * STAGE_BYTES);
+#pragma unroll
+          for (int v = 0; v < 64; ++v) fence_operand(acc[v]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n128k16(acc, desc_sw128(st + wg * BOX_BYTES + 32 * kk, 16, 1024),
+                             desc_sw128(st + SLABS * BOX_BYTES + 2048 * kk, BOX_BYTES, 1024));
+          wgmma_commit();
+          wgmma_wait<0>();  // the stage is read: hand it back at once
+#pragma unroll
+          for (int v = 0; v < 64; ++v) fence_operand(acc[v]);
+        }
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+
+      if (split >= 0) {  // a chunk of a split tile: the last of its blocks finishes it
+        if (live) {
+#pragma unroll
+          for (int v = 0; v < 64; ++v) __stcg(part + (size_t)blockIdx.x * PART_FLOATS + v * 128, acc[v]);
+        }
+        __threadfence();
+        consumers_sync();
+        if (threadIdx.x == 0) *last = atomicAdd(flags + split, 1) == s.chunks - 1;
+        consumers_sync();
+        if (!*last) continue;
+        __threadfence();
+        if (live) {  // the partials in chunk order: the sum is the same whoever is last
+          const int rem = s.tiles % s.grid;
+#pragma unroll
+          for (int v = 0; v < 64; ++v) acc[v] = __ldcg(part + (size_t)split * PART_FLOATS + v * 128);
+          for (int q = 1; q < s.chunks; ++q) {
+            const float* p = part + (size_t)(q * rem + split) * PART_FLOATS;
+#pragma unroll
+            for (int v = 0; v < 64; ++v) acc[v] += __ldcg(p + v * 128);
+          }
+        }
+      }
+      if (!live) continue;
+
+      // epilogue from the registers: fp32 affine + softplus (+ gate), bf16 pairs
+      const int rr = row0 + 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * (lane % 4);
+        if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
+        const float2 av = *reinterpret_cast<const float2*>(a + (size_t)m * N + col);
+        const float2 cv = *reinterpret_cast<const float2*>(c + (size_t)m * N + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rr + 8 * h;
+          if (r >= R) continue;
+          const size_t o = ((size_t)m * R + r) * N + col;
+          float v0 = softplus(acc[4 * j + 2 * h] * av.x + cv.x);
+          float v1 = softplus(acc[4 * j + 2 * h + 1] * av.y + cv.y);
+          if (mult != nullptr) {
+            const float2 mv = load2(mult + o);
+            v0 *= mv.x, v1 *= mv.y;
+          }
+          *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <typename MT>
+int launch_wgmma(const void* x, const void* w, const void* a, const void* c, const void* mult, void* out,
+                 void* work, int M, int R, int K, int N, const WgSched& s, cudaStream_t st) {
+  using namespace wg_cfg;
+  const int rem = s.tiles % max(s.grid, 1);
+  const bool split = rem > 0 && s.chunks > 1;
+  if (s.grid < 1 || s.grid > s.tiles || s.tiles != M * s.row_tiles * s.col_tiles || s.chunks < 1 ||
+      s.chunks > s.steps || (rem > 0 && rem * s.chunks > s.grid) || (split && (work == nullptr || rem > MAX_GRID)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;  // x as (M, R, K) and w as (M, K, N), 64 x 64 boxes
+  if (!hopper::bf16_map_3d(&xmap, x, K, R, M, 64, 64) || !hopper::bf16_map_3d(&wmap, w, N, K, M, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fused_linear_wgmma_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess && split) err = cudaMemsetAsync(work, 0, FLAG_BYTES, st);  // the split tiles' counts
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_linear_wgmma_kernel<MT><<<s.grid, THREADS, SMEM_BYTES, st>>>(
+      xmap, wmap, static_cast<const float*>(a), static_cast<const float*>(c), static_cast<const MT*>(mult),
+      static_cast<bf16*>(out), static_cast<unsigned char*>(work), R, N, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -458,8 +697,9 @@ int launch_simt(const void* x, const void* w, const void* a, const void* c, cons
 }  // namespace
 
 // body: 0 small_k (either dtype), 1 mma (bf16), 2 simt (fp32); mult_f32: mult
-// is fp32 beside bf16 x (small_k and mma). Any other pairing is refused with
-// cudaErrorInvalidValue.
+// is fp32 beside bf16 x (small_k and mma); vec: small_k's and simt's 16-byte
+// vectors (mma stages element by element). Any other pairing is refused
+// with cudaErrorInvalidValue.
 extern "C" int fused_linear_act_launch(const void* x, const void* w, const void* a, const void* c,
                                        const void* mult, void* out, int M, int R, int K, int N,
                                        int is_bf16, int mult_f32, int vec, int body, void* stream) {
@@ -471,10 +711,24 @@ extern "C" int fused_linear_act_launch(const void* x, const void* w, const void*
     return launch_small_k<float, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   }
   if (body == MMA && is_bf16 && mult_f32)
-    return launch_mma<float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-  if (body == MMA && is_bf16) return launch_mma<bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
+    return launch_mma<float>(x, w, a, c, mult, out, M, R, K, N, s);
+  if (body == MMA && is_bf16) return launch_mma<bf16>(x, w, a, c, mult, out, M, R, K, N, s);
   if (body == SIMT && !is_bf16 && !mult_f32) return launch_simt(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma body (bf16 x, w and out; mult bf16 or, with mult_f32, fp32) on
+// the schedule of kernels/fused_linear.py::wgmma_plan. work: the plan's
+// workspace (a count a split tile, then a partial tile a block), null where
+// no tile is split.
+extern "C" int fused_linear_wgmma_launch(const void* x, const void* w, const void* a, const void* c,
+                                         const void* mult, void* out, void* work, int M, int R, int K, int N,
+                                         int mult_f32, int row_tiles, int col_tiles, int steps, int tiles,
+                                         int grid, int chunks, void* stream) {
+  const WgSched s{row_tiles, col_tiles, steps, tiles, grid, chunks};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mult_f32) return launch_wgmma<float>(x, w, a, c, mult, out, work, M, R, K, N, s, st);
+  return launch_wgmma<bf16>(x, w, a, c, mult, out, work, M, R, K, N, s, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -11,21 +11,30 @@ goes through :func:`fused_linear_act_plain`; a CUDA tensor goes through the
 kernel, or the wrapper raises. Both are implementations of one custom op
 (``kernels/_build.py``).
 
-The kernel has three bodies, chosen by shape and dtype (:func:`plan`):
+The kernel has four bodies, chosen by shape and dtype (:func:`plan`):
 ``small_k`` for K <= 16 in either dtype (lin1 up to 8 classes, K = 4 at 2:
-an outer product and an elementwise pass), ``mma`` for larger K in
-bfloat16 (lin2 and lin3: ``mma.sync`` tiles of 160 rows x 128 columns, K
-split over a cluster pair of blocks, each weight strip read once; lin1
-above 8 classes, K = 20 at 10), ``simt`` for larger K in float32. lin1's
-gate ``mult`` is the float32 features beside bfloat16 x and w, since the
-JAX kernel multiplies by them in float32: both bfloat16 bodies read a
-float32 gate at any K. Each launch counts as one ``fused_linear_act``.
+an outer product and an elementwise pass); ``wgmma`` for larger K in
+bfloat16 where K and N are multiples of 8 and every pointer is 16-byte
+aligned (lin2 and lin3, the shapes a TMA tensor map describes): a TMA ring
+fed by a producer warp, ``wgmma`` warpgroups of 64 rows x 128 columns and
+a persistent grid of at most 132 blocks on the schedule of
+:func:`wgmma_plan`. It replaces ``ladine_tpu/kernels/fused_linear.py:66``
+for lin2/lin3; the bytes bound it at R = 160 rows a member (each weight
+strip is read once) and the operations at R = 1400, and a split tile's
+partials are summed in a fixed order, so two launches agree bit for bit.
+``mma`` takes the other bfloat16 shapes (K or N off 8, an unaligned
+pointer; lin1 above 8 classes, K = 20 at 10: ``mma.sync`` tiles of 160
+rows x 128 columns, K split over a cluster pair of blocks); ``simt`` larger
+K in float32. lin1's gate ``mult`` is the float32 features beside bfloat16
+x and w, since the JAX kernel multiplies by them in float32: the bfloat16
+bodies read a float32 gate at any K. Each launch counts as one
+``fused_linear_act``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +45,79 @@ _NAME = "fused_linear"
 _KERNEL = "fused_linear_act"
 SMALL_K = 16  # the largest K the small_k body takes
 _BODIES = {"small_k": 0, "mma": 1, "simt": 2}  # the codes of csrc/fused_linear.cu
+SMS = 132  # streaming multiprocessors of the H100 SXM: the wgmma body's most blocks
+TILE_ROWS, TILE_COLS, STEP_K = 192, 128, 64  # BM, BN, BK of the wgmma body (wg_cfg)
+PART_FLOATS = TILE_ROWS * TILE_COLS  # a block's partial tile in the workspace
+FLAG_BYTES = 1024  # the workspace's counts of the split tiles, before the partial tiles
+
+
+class WgmmaPlan(NamedTuple):
+    """A launch of the wgmma body (``csrc/fused_linear.cu``): tiles of
+    TILE_ROWS x TILE_COLS of one member, row tile fastest, each ``steps``
+    STEP_K-steps of K deep, on ``grid`` persistent blocks. Block b runs
+    tiles b, b + grid, ... whole for ``tiles // grid`` rounds, every block
+    of a round at the same K step; the last ``tiles % grid`` tiles are split
+    in K into ``chunks`` equal parts, chunk q of remainder tile j run by
+    block q * (tiles % grid) + j. ``work_bytes``: the workspace of the split
+    tiles (a count each, then a partial tile a block; 0: none is split)."""
+
+    row_tiles: int
+    col_tiles: int
+    steps: int
+    tiles: int
+    grid: int
+    chunks: int
+    work_bytes: int
+
+    @property
+    def waves(self) -> int:
+        """Rounds of blocks: the whole-tile rounds, and the round of the
+        remainder (``chunks`` times shallower where it is split)."""
+        return -(-self.tiles // self.grid)
+
+    @property
+    def busy(self) -> float:
+        """The share of grid x the longest block's steps that does work."""
+        rounds, rem = divmod(self.tiles, self.grid)
+        longest = rounds * self.steps + (-(-self.steps // self.chunks) if rem else 0)
+        return self.tiles * self.steps / (self.grid * longest)
+
+
+def wgmma_plan(m: int, r: int, k: int, n: int) -> WgmmaPlan:
+    """The wgmma body's schedule for M members of an (R, K) x (K, N)
+    product: a pure function of the shape. Whole tiles run in rounds of at
+    most SMS blocks, the blocks of one weight strip's row tiles (row tile
+    fastest) side by side, so they share the strip in L2. The remainder
+    round splits its tiles in K over as many of the grid's blocks as it can
+    fill evenly, so the last round is 1 / chunks as deep; at R <= TILE_ROWS
+    each weight strip still leaves device memory once. The last block to
+    finish a split tile sums it: no block waits for another."""
+    row_tiles, col_tiles = -(-r // TILE_ROWS), -(-n // TILE_COLS)
+    steps, tiles = -(-k // STEP_K), m * row_tiles * col_tiles
+    grid = min(SMS, tiles)
+    rem = tiles % grid
+    chunks = min(grid // rem, steps) if rem else 1
+    work = FLAG_BYTES + 4 * rem * chunks * PART_FLOATS if chunks > 1 else 0
+    return WgmmaPlan(row_tiles, col_tiles, steps, tiles, grid, chunks, work)
+
+
+def wgmma_segments(p: WgmmaPlan, block: int) -> Iterator[Tuple[int, int, int, int]]:
+    """The (tile, first step, end step, split) segments block ``block``
+    runs, in order: the walk of ``Segments`` in ``csrc/fused_linear.cu``.
+    ``split``: the remainder index of a split tile, else -1."""
+    rounds, rem = divmod(p.tiles, p.grid)
+    for i in range(rounds):
+        yield block + i * p.grid, 0, p.steps, -1
+    if block < rem * p.chunks:
+        q, j = divmod(block, rem)
+        yield (rounds * p.grid + j, q * p.steps // p.chunks, (q + 1) * p.steps // p.chunks,
+               j if p.chunks > 1 else -1)
+
+
+def wgmma_tile(p: WgmmaPlan, tile: int) -> Tuple[int, int, int]:
+    """(member, first row, first column) of a tile."""
+    return (tile // (p.row_tiles * p.col_tiles), tile % p.row_tiles * TILE_ROWS,
+            tile // p.row_tiles % p.col_tiles * TILE_COLS)
 
 
 def fused_linear_act_plain(x, w, a, c, mult=None) -> torch.Tensor:
@@ -55,6 +137,14 @@ def _lib():
     fn = lib.fused_linear_act_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _wgmma_lib():
+    fn = _build.load(_NAME).fused_linear_wgmma_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -93,12 +183,17 @@ def plan(dtype: torch.dtype, k: int, n: int, aligned: bool):
     whether its tiles move as 16-byte vectors. ``aligned``: every pointer is
     16-byte aligned. small_k needs N % 8 == 0 for vectors (8 outputs a
     thread); the GEMM bodies need K and N multiples of the 16-byte vector.
-    Without vectors a body stages element by element: a dispatch by shape,
-    not a fallback."""
+    In bfloat16 those are the shapes a TMA tensor map describes, and they
+    take ``wgmma``; the rest (ragged K or N, a pointer off 16 bytes) take
+    ``mma``, staged element by element: a dispatch by shape, not a
+    fallback."""
     if k <= SMALL_K:
         return "small_k", aligned and n % 8 == 0
     vw = 16 // (2 if dtype == torch.bfloat16 else 4)
-    return ("mma" if dtype == torch.bfloat16 else "simt"), aligned and k % vw == 0 and n % vw == 0
+    vec = aligned and k % vw == 0 and n % vw == 0
+    if dtype == torch.bfloat16:
+        return ("wgmma", True) if vec else ("mma", False)
+    return "simt", vec
 
 
 def fused_linear_act(
@@ -113,9 +208,10 @@ def fused_linear_act(
     x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N) or
     None; x and w share one dtype (float32 or bfloat16), mult has it too or
     is float32 (lin1, whose gate is the float32 features), at any K.
-    Returns (M, R, N) in x.dtype. On the card the kernel body follows from K
-    and the dtype (:func:`plan`): small_k for K <= 16, else mma in bfloat16
-    and simt in float32. The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
+    Returns (M, R, N) in x.dtype. On the card the kernel body follows from K,
+    N, the dtype and the pointers' alignment (:func:`plan`): small_k for K <=
+    16, else wgmma (or mma off the tensor-map shapes) in bfloat16 and simt
+    in float32. The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
     return _op(x, w, a, c, mult)
 
 
@@ -139,15 +235,21 @@ def _launch(x, w, a, c, mult):
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, a, c, mult, out) if t is not None)
     body, vec = plan(x.dtype, k, n, aligned)
-    launch = _lib()
+    ptrs = (x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
+            None if mult is None else mult.data_ptr(), out.data_ptr())
+    mult_f32 = int(mult is not None and mult.dtype != x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
-            None if mult is None else mult.data_ptr(), out.data_ptr(),
-            m, r, k, n, int(x.dtype == torch.bfloat16), int(mult is not None and mult.dtype != x.dtype),
-            int(vec), _BODIES[body], stream,
-        )
+        if body == "wgmma":
+            p = wgmma_plan(m, r, k, n)
+            work = torch.empty(p.work_bytes, dtype=torch.uint8, device=x.device) if p.work_bytes else None
+            err = _wgmma_lib()(
+                *ptrs, None if work is None else work.data_ptr(), m, r, k, n, mult_f32,
+                p.row_tiles, p.col_tiles, p.steps, p.tiles, p.grid, p.chunks, stream,
+            )
+        else:
+            err = _lib()(*ptrs, m, r, k, n, int(x.dtype == torch.bfloat16), mult_f32,
+                         int(vec), _BODIES[body], stream)
     _build.check(err, _NAME, _KERNEL)
     _build.launch_counts[_KERNEL] += 1
     return out

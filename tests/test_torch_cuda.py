@@ -50,6 +50,7 @@ from ladine_tpu_torch.kernels import (
     int8_linear_softplus_plain,
     launch_counts,
 )
+from ladine_tpu_torch.kernels import fused_linear as fl_mod
 from torch_inputs import int8_layer_inputs, layer_inputs, qkv_views
 
 
@@ -160,18 +161,58 @@ def test_flash_attention_bf16_pads_any_d_up_to_128(cuda, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 20, 160, 161, 1400])
+@pytest.mark.parametrize("r", [1, 20, 64, 65, 160, 161, 192, 1400])
 def test_fused_linear_act_mma_body_at_any_row_count(cuda, r):
-    """lin2/lin3's shape (K = N = 4096, bf16) at row counts below, at and
-    above one 160-row tile, with and without the gate."""
-    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(11), 2, r, 4096, 4096))
-    x, w, mult = x.bfloat16(), w.bfloat16(), mult.bfloat16()
-    for m in (None, mult):
+    """lin2/lin3's shape (K = N = 4096, bf16; the wgmma body) at row counts
+    below, at and above one 64-row slab and one 192-row tile, on the path's
+    five members (at R <= 192 a stream plan that splits tiles between
+    blocks), with no gate, a bf16 gate and a float32 gate."""
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(11), 5, r, 4096, 4096))
+    x, w = x.bfloat16(), w.bfloat16()
+    assert fl_mod.plan(x.dtype, 4096, 4096, True) == ("wgmma", True)
+    for m in (None, mult.bfloat16(), mult):
         launch_counts.clear()
         out = fused_linear_act(x, w, a, c, m)
         torch.cuda.synchronize()
         assert launch_counts["fused_linear_act"] == 1
         _close(out, fused_linear_act_plain(x, w, a, c, m), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [20, 160, 1400])
+def test_fused_linear_act_wgmma_body_is_deterministic(cuda, r):
+    """Two launches on the same inputs give the same bits: a tile split
+    between two blocks adds the partial of the one to the other's sum in a
+    fixed order, with no float atomics."""
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(19), 5, r, 4096, 4096))
+    x, w = x.bfloat16(), w.bfloat16()
+    for m in (None, mult):
+        first = fused_linear_act(x, w, a, c, m)
+        second = fused_linear_act(x, w, a, c, m)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-10-classes"])
+def test_fused_linear_act_ragged_and_unaligned_take_the_mma_body(cuda, case):
+    """Shapes a tensor map cannot describe stay on the mma body (staged
+    element by element) and match the plain version."""
+    m, r, k, n = {"ragged-K": (2, 33, 4100, 256), "ragged-N": (2, 33, 256, 4100), "unaligned": (2, 33, 256, 256),
+                  "lin1-10-classes": (5, 160, 20, 4096)}[case]
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(23), m, r, k, n))
+    x, w = x.bfloat16(), w.bfloat16()
+    if case == "unaligned":  # x one element into its storage: 2 bytes off 16
+        x = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)[1:1 + x.numel()].view(m, r, k).copy_(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, a, c, mult))
+    assert aligned == (case != "unaligned")
+    assert fl_mod.plan(x.dtype, k, n, aligned) == ("mma", False)
+    for g in (None, mult):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, g)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1
+        _close(out, fused_linear_act_plain(x, w, a, c, g), 1e-2)
 
 
 @pytest.mark.cuda

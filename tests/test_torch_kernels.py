@@ -9,6 +9,8 @@ The kernels themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,7 +141,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     "dtype, k, n, aligned, want",
     [
         (BF16, 4, 4096, True, ("small_k", True)),  # lin1 on the path
-        (BF16, 4096, 4096, True, ("mma", True)),  # lin2 / lin3 on the path
+        (BF16, 4096, 4096, True, ("wgmma", True)),  # lin2 / lin3 on the path
         (F32, 4, 4096, True, ("small_k", True)),  # lin1 of the fp32 predictor
         (F32, 4096, 4096, True, ("simt", True)),
         (BF16, 2, 4096, True, ("small_k", True)),
@@ -150,14 +152,21 @@ BF16, F32 = torch.bfloat16, torch.float32
         (BF16, 4, 4096, False, ("small_k", False)),
         (BF16, 24, 17, True, ("mma", False)),
         (F32, 24, 17, True, ("simt", False)),
-        (BF16, 256, 200, True, ("mma", True)),
+        (BF16, 256, 200, True, ("wgmma", True)),
         (F32, 256, 200, True, ("simt", True)),
-        (BF16, 72, 64, True, ("mma", True)),
+        (BF16, 72, 64, True, ("wgmma", True)),
         (F32, 40, 12, True, ("simt", True)),  # fp32's vector is 4 wide
         (BF16, 20, 64, True, ("mma", False)),  # lin1 at 10 classes (digits): K = 20
         (F32, 20, 64, True, ("simt", True)),
-        (BF16, 64, 64, True, ("mma", True)),  # digits lin2 / lin3
+        (BF16, 64, 64, True, ("wgmma", True)),  # digits lin2 / lin3
         (F32, 64, 64, True, ("simt", True)),
+        # what stays on mma: K or N off the 16-byte vector, a pointer off 16 bytes
+        (BF16, 4100, 4096, True, ("mma", False)),
+        (BF16, 4096, 4100, True, ("mma", False)),
+        (BF16, 24, 8, True, ("wgmma", True)),  # the smallest K a tensor map takes above small_k
+        (BF16, 24, 8, False, ("mma", False)),
+        (BF16, 64, 64, False, ("mma", False)),
+        (BF16, 18, 4096, True, ("mma", False)),  # lin1 at 9 classes
     ],
 )
 def test_fused_linear_act_plan_is_a_function_of_shape_dtype_and_alignment(dtype, k, n, aligned, want):
@@ -173,8 +182,103 @@ def test_fused_linear_act_plan_ignores_the_row_count(r, dtype):
                         for i, s in enumerate([(5, r, 4096), (5, 4096, 8), (5, 8), (5, 8), (5, r, 8)]))
     m, r_, k, n = fl_mod._check(x, w, a, c, mult)
     assert (m, r_) == (5, r)
-    assert fl_mod.plan(dtype, k, n, True) == ("mma" if dtype == BF16 else "simt", True)
+    assert fl_mod.plan(dtype, k, n, True) == ("wgmma" if dtype == BF16 else "simt", True)
     assert fl_mod.plan(dtype, 4, n, True) == ("small_k", True)
+
+
+WGMMA_SHAPES = [(5, r, 4096, 4096) for r in (1, 20, 160, 161, 1400)] + [(5, 640, 64, 64)]
+# (waves, chunks of a remainder tile) as the note of csrc/fused_linear.cu gives them
+WGMMA_WAVES = {1: (2, 4), 20: (2, 4), 160: (2, 4), 161: (2, 4), 1400: (10, 1), 640: (1, 1)}
+
+
+def _wgmma_walk(p):
+    """{(tile, step): block} over every block's segments; fails on a step run twice."""
+    seen = {}
+    for b in range(p.grid):
+        for tile, kb, ke, _ in fl_mod.wgmma_segments(p, b):
+            assert 0 <= kb < ke <= p.steps and 0 <= tile < p.tiles
+            for ks in range(kb, ke):
+                assert (tile, ks) not in seen, f"step {ks} of tile {tile} runs twice"
+                seen[tile, ks] = b
+    return seen
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=str)
+def test_wgmma_plan_covers_every_output_tile_once(shape):
+    """Every (tile, K-step) of the product runs on exactly one block, and
+    the tiles cover the output: each element in exactly one tile."""
+    m, r, k, n = shape
+    p = fl_mod.wgmma_plan(m, r, k, n)
+    assert _wgmma_walk(p).keys() == {(t, ks) for t in range(p.tiles) for ks in range(p.steps)}
+    assert p.steps == -(-k // fl_mod.STEP_K)
+    cover = np.zeros((m, r, n), dtype=int)
+    for t in range(p.tiles):
+        mm, row0, col0 = fl_mod.wgmma_tile(p, t)
+        assert row0 < r and col0 < n
+        cover[mm, row0:row0 + fl_mod.TILE_ROWS, col0:col0 + fl_mod.TILE_COLS] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=str)
+def test_wgmma_plan_splits_only_the_remainder_tiles_in_equal_chunks(shape):
+    """Tiles of the whole rounds run on one block each, every block of a
+    round on its own tile from K step 0; each remainder tile runs in
+    ``chunks`` chunks of equal depth (within a step), chunk q on block
+    q * rem + j, which knows the tile's remainder index. The workspace holds
+    a count per split tile and a partial tile per block that runs a chunk."""
+    p = fl_mod.wgmma_plan(*shape)
+    seen = _wgmma_walk(p)
+    rounds, rem = divmod(p.tiles, p.grid)
+    for t in range(rounds * p.grid):
+        assert {seen[t, ks] for ks in range(p.steps)} == {t % p.grid}
+    for j in range(rem):
+        t = rounds * p.grid + j
+        blocks = [seen[t, ks] for ks in range(p.steps)]
+        assert sorted(set(blocks)) == [q * rem + j for q in range(p.chunks)]
+        depths = collections.Counter(blocks).values()
+        assert max(depths) - min(depths) <= 1
+        for q in range(p.chunks):
+            assert list(fl_mod.wgmma_segments(p, q * rem + j))[-1][3] == (j if p.chunks > 1 else -1)
+    assert (p.work_bytes > 0) == (rem > 0 and p.chunks > 1)
+    if p.work_bytes:
+        assert p.work_bytes == fl_mod.FLAG_BYTES + 4 * rem * p.chunks * fl_mod.PART_FLOATS
+        assert rem * 4 <= fl_mod.FLAG_BYTES and rem * p.chunks <= p.grid
+
+
+@pytest.mark.parametrize("r", [1, 20, 160, 161, 192])
+def test_wgmma_plan_reads_each_weight_strip_once_when_r_fits_a_row_tile(r):
+    """R <= TILE_ROWS: one row tile, so each (member, column tile, K-step)
+    box of the weights is loaded by one block once; all 132 SMs take a block,
+    and the remainder's chunks fill 112 of them for a quarter of K."""
+    p = fl_mod.wgmma_plan(5, r, 4096, 4096)
+    assert p.row_tiles == 1 and p.grid == fl_mod.SMS and p.chunks == 4
+    loads = collections.Counter()
+    for b in range(p.grid):
+        for tile, kb, ke, _ in fl_mod.wgmma_segments(p, b):
+            mm, _, col0 = fl_mod.wgmma_tile(p, tile)
+            loads.update((mm, col0, ks) for ks in range(kb, ke))
+    assert len(loads) == 5 * (4096 // fl_mod.TILE_COLS) * p.steps and set(loads.values()) == {1}
+    lengths = sorted(sum(ke - kb for _, kb, ke, _ in fl_mod.wgmma_segments(p, b)) for b in range(p.grid))
+    assert lengths == [64] * 20 + [80] * 112
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=str)
+def test_wgmma_plan_is_a_function_of_the_shape_with_the_noted_waves(shape):
+    """Same shape, same plan (the split boundaries follow from it alone);
+    the waves, chunks and busy share are those of the source note."""
+    m, r, k, n = shape
+    p = fl_mod.wgmma_plan(*shape)
+    assert p == fl_mod.wgmma_plan(*shape)
+    assert [list(fl_mod.wgmma_segments(p, b)) for b in range(p.grid)] == \
+        [list(fl_mod.wgmma_segments(fl_mod.wgmma_plan(*shape), b)) for b in range(p.grid)]
+    assert (p.waves, p.chunks) == WGMMA_WAVES[r]
+    assert p.grid == min(fl_mod.SMS, p.tiles)
+    longest = max(sum(ke - kb for _, kb, ke, _ in fl_mod.wgmma_segments(p, b)) for b in range(p.grid))
+    assert p.busy == pytest.approx(p.tiles * p.steps / (p.grid * longest))
+    if r == 1400:  # 1280 tiles: 9 waves of 132 and one of 92
+        assert p.tiles == 1280 and p.busy == pytest.approx(1280 / 1320)
+    if r == 160:  # 160 tiles: 132 whole, 28 in quarters on 112 blocks
+        assert p.busy == pytest.approx(160 / (132 * 1.25))
 
 
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
@@ -213,7 +317,8 @@ def test_fused_linear_act_takes_a_float32_gate_beside_bf16_at_any_k(k):
     x, w, mult = torch.zeros(2, 3, k, dtype=BF16), torch.zeros(2, k, 8, dtype=BF16), torch.zeros(2, 3, 8)
     a = c = torch.zeros(2, 8)
     assert fl_mod._check(x, w, a, c, mult) == (2, 3, k, 8)
-    assert fl_mod.plan(BF16, k, 8, True) == (("small_k", True) if k <= 16 else ("mma", k % 8 == 0))
+    want = ("small_k", True) if k <= 16 else ("wgmma", True) if k % 8 == 0 else ("mma", False)
+    assert fl_mod.plan(BF16, k, 8, True) == want
     with pytest.raises(TypeError, match="mult must be float32 or x's dtype"):
         fl_mod._check(x, w, a, c, mult.half())
     with pytest.raises(TypeError, match="mult must be float32 or x's dtype"):
