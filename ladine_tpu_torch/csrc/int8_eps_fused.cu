@@ -32,9 +32,9 @@
 // them, so both pick the same codes. l34: the zero-point codes of h2 come
 // from the quantizing pre-pass (as in K4), and the GEMM's LIN4 epilogue
 // contracts each h3 tile with its rows of w4; the tile's cluster adds the
-// ranks' partial sums of each row in rank order and into out with one fp32
-// atomic a row, a class and a column tile (bit-reproducible where N fits one
-// column tile).
+// ranks' partial sums of each row in rank order into its column tile's slot
+// of a workspace, and the last block of a row tile to count in adds the
+// slots in column-tile order into out: bit-reproducible at every N.
 
 #include "int8_gemm.cuh"
 
@@ -120,20 +120,20 @@ int launch_l12(const void* f, const void* y_in, const void* w1, const void* a1, 
   int err = launch_lin1<T>(f, y_in, w1, a1, c1, xq, xmax, M, R, K, Ci, threads, st);
   if (err != 0) return err;
   return launch_gemm<T, STORE>(static_cast<const int8_t*>(xq), static_cast<const float*>(xmax), w2,
-                               s2, c2, nullptr, h2, hmax2, nullptr, nullptr, M, R, K, N, 0,
+                               s2, c2, nullptr, h2, hmax2, nullptr, nullptr, nullptr, M, R, K, N, 0,
                                row_tiles, col_tiles, st);
 }
 
 template <typename T>
 int launch_l34(const void* h2, const void* hmax2, void* xq, const void* w3, const void* s3,
-               const void* c3, const void* colsum3, const void* w4, void* out, int M, int R, int K,
-               int N, int C, int row_tiles, int col_tiles, cudaStream_t st) {
+               const void* c3, const void* colsum3, const void* w4, void* out, void* work, int M, int R,
+               int K, int N, int C, int row_tiles, int col_tiles, cudaStream_t st) {
   int err = launch_quantize_rows<T>(h2, static_cast<const float*>(hmax2), static_cast<int8_t*>(xq),
                                     (long long)M * R, K, true, st);
   if (err != 0) return err;
   return launch_gemm<T, LIN4>(static_cast<const int8_t*>(xq), static_cast<const float*>(hmax2), w3,
-                              s3, c3, colsum3, nullptr, nullptr, w4, out, M, R, K, N, C, row_tiles,
-                              col_tiles, st);
+                              s3, c3, colsum3, nullptr, nullptr, w4, out, work, M, R, K, N, C,
+                              row_tiles, col_tiles, st);
 }
 
 }  // namespace
@@ -165,18 +165,19 @@ extern "C" int int8_eps_l12_launch(const void* f, const void* y_in, const void* 
                            threads, row_tiles, col_tiles, st);
 }
 
-// xq: (M, R, K) int8 scratch; out: (M, R, C) fp32, zero-filled.
+// xq: (M, R, K) int8 scratch; out: (M, R, C) fp32 (every element written);
+// work: the workspace of kernels/int8_eps_fused.py::l34_workspace_bytes,
+// its counts zero (the kernel leaves them zero).
 extern "C" int int8_eps_l34_launch(const void* h2, const void* hmax2, void* xq, const void* w3,
                                    const void* s3, const void* c3, const void* colsum3,
-                                   const void* w4, void* out, int M, int R, int K, int N, int C,
-                                   int row_tiles, int col_tiles, int is_bf16,
-                                   void* stream) {
+                                   const void* w4, void* out, void* work, int M, int R, int K, int N,
+                                   int C, int row_tiles, int col_tiles, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_l34<__nv_bfloat16>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, M, R, K, N, C,
-                                     row_tiles, col_tiles, st);
-  return launch_l34<float>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, M, R, K, N, C, row_tiles,
-                           col_tiles, st);
+    return launch_l34<__nv_bfloat16>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, M, R, K, N,
+                                     C, row_tiles, col_tiles, st);
+  return launch_l34<float>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, M, R, K, N, C,
+                           row_tiles, col_tiles, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -9,7 +9,7 @@
 //   z   = (acc [+ 127 * colsum]) * (xs * s) + c,   xs = max(xmax, 1e-8) / (127 | 254)
 //   h   = softplus(z) rounded to the activation type T
 //   STORE: h[m] = h, hmax[m, r] = max over the row of the stored h
-//   LIN4:  out[m] += h @ w4[m]              (h never reaches device memory)
+//   LIN4:  out[m] = h @ w4[m]               (h never reaches device memory)
 //
 // xq: (M, R, K) int8, xmax: (M, R) fp32, w: the (K, N) int8 weight stored
 // K-contiguous, i.e. as (M, N, K); s, c, colsum: (M, N) fp32.
@@ -57,13 +57,20 @@
 // it goes and sums across the warp columns in shared memory. Rank q of the
 // cluster then takes the q-th quarter of the tile's rows: it adds each
 // row's 4 ranks' sums in rank order through distributed shared memory and
-// makes one fp32 atomicAdd a row, a class and a column tile into a
-// zero-filled out. Where N fits one column tile (N <= 128, the
-// 10-class digits model's 64 among them) out is so the same bit for bit
-// from run to run: the reverse chain at 10 classes carried the run-to-run
-// rounding of 4 atomics a tile to 3e-4 of the probabilities (a graphed
-// request against its eager run). Several column tiles (full width: 32)
-// still meet in atomics in no fixed order.
+// stores them, (rows x C) fp32, into its column tile's slot of a workspace
+// that the wrapper allocates (kernels/int8_eps_fused.py::
+// l34_workspace_bytes: a count a (member, row tile), then a slot a column
+// tile). Each cluster then counts itself in (an integer atomic); the last
+// of a (member, row tile)'s col_tiles clusters sums the col_tiles slots in
+// column-tile order into out and resets the count, so a graph replay
+// starts clean. No float atomics and no block waits for another: the
+// order of every sum is fixed by the shape, so two launches give the same
+// bits at any N (at full width 32 column tiles meet; before, they met in
+// fp32 atomics in no fixed order and a K5 request was not reproducible).
+// Its cost, on an H100 80GB HBM3 at 700 W against the atomics in the same
+// call (examples/kernel_ab.py): 0.1069-0.1073 -> 0.1120-0.1136 ms at batch
+// 8 and 0.747-0.749 -> 0.778-0.784 at R = 1400, a third of it the slots'
+// stores and the rest the count and the last cluster's ordered sum.
 //
 // Numerics follow ladine_tpu/kernels/int8_pallas.py: round half to even
 // (rintf), IEEE division in the quantizer, and __fmul_rn/__fadd_rn keep the
@@ -96,6 +103,11 @@ static_assert(PART_BYTES + (CLASSES * WARPS_N * BM + BM) * 4 <= SMEM_BYTES,
               "partials, row sums and row scales fit the ring");
 
 enum Epilogue { STORE = 0, LIN4 = 1 };
+
+// LIN4's workspace: an int count a (member, row tile), padded to 16 bytes,
+// then a (R x C) fp32 slot a (member, column tile). The layout of
+// kernels/int8_eps_fused.py::l34_workspace_bytes.
+__host__ __device__ inline int lin4_flag_bytes(int M, int row_tiles) { return (M * row_tiles * 4 + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -183,6 +195,14 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// *p += v at GPU scope, acquire-release: the writes this thread has seen
+// happen before it are visible to whoever reads the sum after it
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -227,7 +247,7 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
                  const int8_t* __restrict__ wt, const float* __restrict__ s,
                  const float* __restrict__ c, const float* __restrict__ colsum,
                  T* __restrict__ h, float* __restrict__ hmax, const T* __restrict__ w4,
-                 float* __restrict__ out, int R, int K, int N, int C) {
+                 float* __restrict__ out, unsigned char* __restrict__ work, int R, int K, int N, int C) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) unsigned char smem[];
@@ -354,7 +374,11 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
   // recomputing h) as it goes; the warp columns meet in red. STORE: one
   // atomicMax a row a block follows. LIN4: each rank leaves its row sums in
   // red, and each row's 4 are added in rank order by the rank that owns the
-  // row, one atomicAdd a row and class a tile.
+  // row into the column tile's slot of the workspace (summed below).
+  const int flag_bytes = EPI == LIN4 ? lin4_flag_bytes((int)gridDim.z, (int)gridDim.x / CLUSTER) : 0;
+  float* slot = EPI == LIN4
+                    ? reinterpret_cast<float*>(work + flag_bytes) + ((size_t)m * gridDim.y + blockIdx.y) * R * C
+                    : nullptr;
   constexpr int NQ = EPI == STORE ? 1 : CLASSES;
   const bool pairs = N % 2 == 0;  // then col < N implies col + 1 < N, 2-element aligned
   for (int c0 = 0; c0 < (EPI == STORE ? 1 : C); c0 += NQ) {
@@ -462,7 +486,7 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
           float v = cluster.map_shared_rank(red, 0)[q * WARPS_N * BM + lr];
 #pragma unroll
           for (int d = 1; d < CLUSTER; ++d) v += cluster.map_shared_rank(red, d)[q * WARPS_N * BM + lr];
-          atomicAdd(out + ((size_t)m * R + r4) * C + c0 + q, v);
+          __stcg(slot + (size_t)r4 * C + c0 + q, v);
         }
       }
       if (c0 + NQ < C) cluster.sync();  // the sums are read before another pass overwrites them (the last: below)
@@ -471,15 +495,49 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xmax,
     }
   }
   cluster.sync();  // the peers have read this block's partials
+
+  if constexpr (EPI == LIN4) {
+    // Rank 0 counts its cluster in once every rank's slot rows are written:
+    // the cluster barrier above releases the ranks' writes to it, and its
+    // acquire-release add passes them on at GPU scope (no fence a block).
+    // The last cluster of the (member, row tile) sums the column tiles'
+    // slots in column-tile order: the order is the shape's, whoever is last,
+    // and no block waits for another.
+    if (rank != 0) return;
+    __shared__ int last;
+    int* count = reinterpret_cast<int*>(work) + (size_t)m * (gridDim.x / CLUSTER) + blockIdx.x / CLUSTER;
+    if (tid == 0) last = atomic_add_acq_rel(count, 1) == (int)gridDim.y - 1;
+    __syncthreads();
+    if (last) {
+      const float* first = reinterpret_cast<const float*>(work + flag_bytes) + (size_t)m * gridDim.y * R * C;
+      const int n_rows = min(BM, R - row0);
+      const int cols = (int)gridDim.y;
+      for (int i = tid; i < n_rows * C; i += THREADS) {
+        const size_t rc = (size_t)row0 * C + i;  // row row0 + i / C, class i % C
+        float v = 0.f;
+        for (int j0 = 0; j0 < cols; j0 += 16) {  // 16 loads in flight, then the adds in order
+          float t[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) t[u] = j0 + u < cols ? __ldcg(first + (size_t)(j0 + u) * R * C + rc) : 0.f;
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            if (j0 + u < cols) v = j0 + u == 0 ? t[u] : v + t[u];
+        }
+        out[(size_t)m * R * C + rc] = v;
+      }
+      if (tid == 0) *count = 0;  // a graph replay starts clean
+    }
+  }
 }
 
 // The launch covers rows row_tiles x BM >= R and columns col_tiles x BN >=
-// N, each tile by a cluster of CLUSTER blocks.
+// N, each tile by a cluster of CLUSTER blocks. work: LIN4's workspace, its
+// counts zero (null for STORE).
 template <typename T, int EPI>
 int launch_gemm(const int8_t* xq, const float* xmax, const void* wt, const void* s, const void* c,
-                const void* colsum, void* h, void* hmax, const void* w4, void* out, int M, int R,
-                int K, int N, int C, int row_tiles, int col_tiles, cudaStream_t st) {
-  if ((long long)row_tiles * BM < R || (long long)col_tiles * BN < N)
+                const void* colsum, void* h, void* hmax, const void* w4, void* out, void* work, int M,
+                int R, int K, int N, int C, int row_tiles, int col_tiles, cudaStream_t st) {
+  if ((long long)row_tiles * BM < R || (long long)col_tiles * BN < N || (EPI == LIN4 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = int8_gemm_kernel<T, EPI>;
   cudaError_t err =
@@ -489,7 +547,8 @@ int launch_gemm(const int8_t* xq, const float* xmax, const void* wt, const void*
   kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
       xq, xmax, static_cast<const int8_t*>(wt), static_cast<const float*>(s),
       static_cast<const float*>(c), static_cast<const float*>(colsum), static_cast<T*>(h),
-      static_cast<float*>(hmax), static_cast<const T*>(w4), static_cast<float*>(out), R, K, N, C);
+      static_cast<float*>(hmax), static_cast<const T*>(w4), static_cast<float*>(out),
+      static_cast<unsigned char*>(work), R, K, N, C);
   return static_cast<int>(cudaGetLastError());
 }
 

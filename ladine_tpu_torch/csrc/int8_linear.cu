@@ -38,7 +38,7 @@ int launch(const void* x, const void* xmax, void* xq, const void* w, const void*
   if (err != 0) return err;
   return int8k::launch_gemm<T, int8k::STORE>(static_cast<const int8_t*>(xq),
                                              static_cast<const float*>(xmax), w, s, c, colsum, h,
-                                             hmax, nullptr, nullptr, M, R, K, N, 0, row_tiles,
+                                             hmax, nullptr, nullptr, nullptr, M, R, K, N, 0, row_tiles,
                                              col_tiles, st);
 }
 

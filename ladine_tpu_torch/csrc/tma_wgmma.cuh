@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the K1 wgmma body (fused_linear.cu):
-// mbarriers, TMA tile loads, the tensor maps they read, wgmma descriptors and
-// the m64n128k16 bf16 product, and setmaxnreg.
+// Hopper (sm_90a) building blocks of the K1 wgmma body (fused_linear.cu) and
+// the K3 wgmma body (attention.cu): mbarriers, TMA tile loads, the tensor
+// maps they read, wgmma descriptors, the bf16 products (m64n128k16, and
+// m64n64k16 / m64n16k16 with B K-major or MN-major, A from shared memory or
+// from registers), and setmaxnreg.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
 // whose inner extent is 64 bf16 (128 bytes) lands as rows of 128 bytes, the
@@ -15,6 +17,8 @@
 //     LBO = the bytes between the two 64-column boxes, SBO = 1024 bytes
 //     between 8-row (8 K) atoms; the k16 step kk starts 16 kk rows (2048 kk
 //     bytes) in.
+//   K-major B (K3's keys, 64 n rows x 64 K): as the K-major A, SBO = 1024
+//     bytes between 8-row atoms, the k16 step kk 32 kk bytes into each row.
 
 #pragma once
 
@@ -74,6 +78,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the 4-D box at (c0, c1, c2, c3) of `map`, as tma_load_3d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -107,6 +121,23 @@ inline bool bf16_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_
   cuuint32_t box[3] = {b0, b1, 1};
   cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a strided bf16 array of 4 dims, d0 innermost (unit stride), the
+// others at byte strides s1, s2, s3 (multiples of 16), read in boxes of
+// (b0, 1, b2, 1) with the 128-byte swizzle (b0 = 64: 128 bytes). Returns
+// false where the CUDA driver refuses it.
+inline bool bf16_map_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t d3,
+                        uint64_t s1, uint64_t s2, uint64_t s3, uint32_t b0, uint32_t b2) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {d0, d1, d2, d3};
+  cuuint64_t strides[3] = {s1, s2, s3};
+  cuuint32_t box[4] = {b0, 1, b2, 1};
+  cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -155,6 +186,60 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
+
+#define WG_F8(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+                    "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64 fp32) += A (64 x 16, K-major, shared memory) @ B (16 x 64,
+// K-major: imm-trans-b = 0); fragments as m64n128k16's, columns 0 .. 63.
+__device__ __forceinline__ void wgmma_m64n64k16_kmajor(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 16 fp32) += A (64 x 16, K-major, shared memory) @ B (16 x 16,
+// K-major); fragments as m64n128k16's, columns 0 .. 15.
+__device__ __forceinline__ void wgmma_m64n16k16_kmajor(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_F8(d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16 in registers) @ B (16 x 64, MN-major:
+// imm-trans-b = 1). Thread t (warp w, lane l) holds A's rows 16 w + l / 4
+// (a0, a2) and + 8 (a1, a3), columns 2 (l % 4) + {0, 1} (a0, a1) and + 8
+// (a2, a3), two bf16 a register: the accumulator fragments of one k16 slice
+// (columns 16 kk .. 16 kk + 15 of an m64nN product), rounded in pairs.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F8
 
 // ---- registers --------------------------------------------------------------
 

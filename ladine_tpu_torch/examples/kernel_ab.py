@@ -1,0 +1,125 @@
+"""Time K3 (``flash_attention``) and K5b (``int8_eps_l34``) of two or more
+checkouts of the port on one card, in turns, so that a change to a kernel
+is compared with its parent on the same card in the same call.
+
+    python ladine_tpu_torch/examples/kernel_ab.py --roots PARENT . [--out FILE]
+
+Each root is a directory that holds a ``ladine_tpu_torch`` package (a
+checkout, or a ``git archive`` of one). Each runs in a process of its own,
+which builds that root's kernels from its sources, in the order of
+``--roots`` and then reversed (A, B, B, A). A process times each kernel on
+the same seeded inputs: K3 in bfloat16 and float32 on the strided slices of
+a fused qkv projection at the serving batch 8 (196 tokens), a training
+batch 30 (197 tokens; 12 heads of 64 and ConViT's 16 of 48) and the
+evidence batch 70 (197), and K5b at lin3 (5, R,
+4096) -> 4096 with lin4 N = 2 at R = 160 (batch 8) and 1400 (batch 70) on
+float32 and bfloat16 rows; device time by CUDA events over back-to-back
+calls behind a spin kernel, and each output's largest difference from the
+plain version. The card's name and power limit lead the output; the last
+line is the JSON record of every run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+K3_SHAPES = ((8, 196, 12, 64), (30, 197, 12, 64), (30, 197, 16, 48), (70, 197, 12, 64))
+K5B_ROWS = (160, 1400)
+
+
+def _cuda_ms(torch, fn, iters: int, spin: int = 1_000_000) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(iters * spin)  # holds the stream while the host enqueues the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def worker(root: str) -> dict:
+    """Times of the kernels of the package under ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import int8 as Q
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    out = {"root": root, "package": os.path.dirname(K.__file__), "k3": {}, "k5b": {}}
+    for b, n, h, d in K3_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = rnd(b, n, 3, h, d, lo=-2.0, hi=2.0, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            err = (K.flash_attention(q, k, v).float() - K.flash_attention_plain(q, k, v).float()).abs().max()
+            out["k3"][f"{(b, n, h, d)} {str(dtype)[6:]}"] = dict(
+                ms=_cuda_ms(torch, lambda: K.flash_attention(q, k, v), 50), max_abs_err=float(err))
+    m, k_, n_, c = 5, 4096, 4096, 2
+    w_q, w_scale = Q.quantize_weight(rnd(m, k_, n_, lo=-k_**-0.5, hi=k_**-0.5))
+    colsum = w_q.sum(dim=1, dtype=torch.int32).float()
+    s, c3 = (w_scale * rnd(m, n_, lo=0.5, hi=1.5)).contiguous(), rnd(m, n_, lo=-0.5, hi=0.5)
+    for r in K5B_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            h2 = rnd(m, r, k_, lo=0.0, hi=2.0, dtype=dtype)
+            args = (h2, h2.float().amax(-1, keepdim=True).contiguous(), w_q, s, c3, colsum,
+                    rnd(m, n_, c, lo=-n_**-0.5, hi=n_**-0.5, dtype=dtype))
+            first = K.int8_eps_l34(*args)
+            err = (first - K.int8_eps_l34_plain(*args)).abs().max()
+            out["k5b"][f"R={r} {str(dtype)[6:]} rows"] = dict(
+                ms=_cuda_ms(torch, lambda: K.int8_eps_l34(*args), 50), max_abs_err=float(err),
+                repeats_bit_for_bit=bool(torch.equal(first, K.int8_eps_l34(*args))))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--roots", nargs="+", required=True, help="checkouts of the port, compared in turns")
+    ap.add_argument("--out", default=None, help="also write the JSON record here")
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker is not None:
+        print(json.dumps(worker(args.worker)))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    runs = []
+    for root in list(args.roots) + list(reversed(args.roots)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--roots", root, "--worker", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        for kind in ("k3", "k5b"):
+            for key, rec in runs[-1][kind].items():
+                print(f"{root}: {kind} {key}: {rec['ms']:.4f} ms, max_abs_err {rec['max_abs_err']:.3e}"
+                      + (f", repeats bit for bit: {rec['repeats_bit_for_bit']}" if kind == "k5b" else ""))
+    record = {"card": card, "runs": runs}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ members (``csrc/int8_eps_fused.cu``):
   symmetric int8 codes (the lin1 pass, :func:`int8_lin1` alone), then lin2
   as in K4: (h2, hmax2).
 * :func:`int8_eps_l34`: lin3 on the zero-point codes of h2, each h3 tile
-  contracted with w4 at once: (M, R, C) float32, without lin4's bias.
+  contracted with w4 at once: (M, R, C) float32, without lin4's bias. The
+  column tiles' sums meet in a workspace (:func:`l34_workspace_bytes`) and
+  are added in column-tile order, so two launches agree bit for bit.
 
 A CPU tensor goes through the ``*_plain`` versions; a CUDA tensor goes
 through the kernels, or the wrapper raises. Each pair is the CPU and CUDA
@@ -39,6 +41,18 @@ L12 = "int8_eps_fused_l12"
 L34 = "int8_eps_fused_l34"
 LIN1 = "int8_lin1"  # K5a's lin1 pass launched alone (its tests and timing)
 _LIN1_MAX_K = 16 * 512  # 16 k a thread, one row a block of at most 512 threads
+
+
+def l34_workspace_bytes(m: int, r: int, n: int, c: int) -> Tuple[int, int]:
+    """K5b's workspace for M members of R rows, lin3's N and lin4's C:
+    (bytes of the counts, all bytes). A count (int32) a (member, row tile),
+    padded to 16 bytes, then an (R, C) float32 slot a (member, column tile)
+    of lin3's :func:`gemm_plan` (``lin4_flag_bytes`` in
+    ``csrc/int8_gemm.cuh``). The counts must be zero at the launch; the
+    kernel leaves them zero."""
+    p = gemm_plan(m, r, 16, n)
+    flags = -(-4 * m * p.row_tiles // 16) * 16
+    return flags, flags + 4 * m * p.col_tiles * r * c
 
 
 def lin1_threads(k: int) -> int:
@@ -231,17 +245,22 @@ def _l34_launch(h2, hmax2, w_q3, s3, c3, colsum3, w4):
         raise ValueError(f"{L34}: w4 must be contiguous (M, N, C) with (M, N) = {(m, n)}")
     same_device(L34, h2, hmax2, w_q3, s3, c3, colsum3, w4)
     n_out = w4.shape[2]
-    out = torch.zeros((m, r, n_out), dtype=torch.float32, device=h2.device)
-    if out.numel() == 0 or n == 0:
+    if n == 0:
+        return torch.zeros((m, r, n_out), dtype=torch.float32, device=h2.device)
+    out = torch.empty((m, r, n_out), dtype=torch.float32, device=h2.device)
+    if out.numel() == 0:
         return out
     xq = torch.empty((m, r, k), dtype=torch.int8, device=h2.device)
     plan = gemm_plan(m, r, k, n)
-    launch = _lib("int8_eps_l34_launch", 9, 8)
+    flag_bytes, work_bytes = l34_workspace_bytes(m, r, n, n_out)
+    work = torch.empty(work_bytes, dtype=torch.uint8, device=h2.device)
+    work[:flag_bytes].zero_()
+    launch = _lib("int8_eps_l34_launch", 10, 8)
     with torch.cuda.device(h2.device):
         err = launch(
             h2.data_ptr(), hmax2.data_ptr(), xq.data_ptr(), w_q3.data_ptr(), s3.data_ptr(),
-            c3.data_ptr(), colsum3.data_ptr(), w4.data_ptr(), out.data_ptr(), m, r, k, n, n_out,
-            plan.row_tiles, plan.col_tiles, int(h2.dtype == torch.bfloat16),
+            c3.data_ptr(), colsum3.data_ptr(), w4.data_ptr(), out.data_ptr(), work.data_ptr(), m, r, k, n,
+            n_out, plan.row_tiles, plan.col_tiles, int(h2.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, _NAME, L34)

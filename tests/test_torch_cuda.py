@@ -14,7 +14,8 @@ kernels pick the same int8 codes as their plain versions (same IEEE
 division, round half to even) and sum them exactly in int32, so K4 differs
 only where softplus rounds apart (1e-5 in fp32); K5's lin1 pass does the
 plain version's float32 arithmetic in the same order, so its codes are equal
-bit for bit, and its lin4 sums with atomics in no fixed order (1e-4).
+bit for bit, and its lin4 sums in another order than the plain product
+(1e-4), but in a fixed one: two launches agree bit for bit at every N.
 
 K3's gradient with the kernel's forward (the forward of a grad-requiring
 call still launches the kernel) equals autograd of the plain version at the
@@ -24,8 +25,8 @@ require grad.
 
 The serving program on the card: each kernel's ``torch.library`` op passes
 ``opcheck`` with its CUDA implementation; a request replayed from the CUDA
-graph of its batch shape equals the same request run eagerly, exactly
-(K5b's lin4 within its fp32 atomics, 1e-6), at every preset and int8 flag;
+graph of its batch shape equals the same request run eagerly, exactly, at
+every preset and int8 flag;
 concurrent callers of one graph each get their own rows; a bundle exported
 on the card serves exactly as the live predictor; and N replays count N
 times the launches captured.
@@ -50,6 +51,7 @@ from ladine_tpu_torch.kernels import (
     int8_linear_softplus_plain,
     launch_counts,
 )
+from ladine_tpu_torch.kernels import attention as attn_mod
 from ladine_tpu_torch.kernels import fused_linear as fl_mod
 from torch_inputs import int8_layer_inputs, layer_inputs, qkv_views
 
@@ -109,8 +111,9 @@ def test_kernels_raise_instead_of_falling_back(cuda):
 @pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("n", [1, 64, 65, 196, 197, 300])
 def test_flash_attention_bf16_mma_body_matches_plain(cuda, n, d):
-    """The tensor-core body on strided qkv views: one and several 64-row
-    query tiles, a ragged last tile, and more keys than one 32-key chunk."""
+    """The tensor-core bodies on strided qkv views (``wgmma`` at D = 64 up
+    to 256 keys, ``mma`` otherwise): one and several 64-row query tiles, a
+    ragged last tile, and more keys than one 32-key chunk."""
     _, (q, k, v) = qkv_views(np.random.default_rng(10), 2, n, 3, d)
     q, k, v = (torch.stack([q, k, v], 2).to(cuda, torch.bfloat16)[:, :, i] for i in range(3))
     launch_counts.clear()
@@ -434,7 +437,7 @@ def test_int8_gemm_through_k4_at_any_row_count_and_ragged_k_n(cuda, shape, zp):
 def test_int8_eps_fused_gemm_at_any_row_count_and_ragged_k_n(cuda, shape):
     """K5a (lin1 pass + the GEMM's STORE epilogue) and K5b (the LIN4
     epilogue) in bf16 at the same shapes: h2 within one bf16 ulp, and lin4's
-    sums within fp32 reordering by atomics (1e-4)."""
+    sums within fp32 reordering (1e-4), the same bits at a second launch."""
     m, r, k, n = shape
     rng = np.random.default_rng(16)
     f, _, w_q2, s2, c2, _, y_in, w1 = int8_layer_inputs(rng, m, r, k, k, cuda, torch.bfloat16, False)
@@ -453,6 +456,7 @@ def test_int8_eps_fused_gemm_at_any_row_count_and_ragged_k_n(cuda, shape):
     torch.cuda.synchronize()
     assert launch_counts["int8_eps_fused_l34"] == 1
     _close(out, int8_eps_l34_plain(ref_h2, ref_m2, w_q3, s3, c3, cs3, w4), 1e-4)
+    assert torch.equal(out, int8_eps_l34(ref_h2, ref_m2, w_q3, s3, c3, cs3, w4))
 
 
 @pytest.mark.cuda
@@ -557,12 +561,9 @@ def _small_predictor(device, **kw):
                        sched=L.DiffusionSchedule.create("linear", 50, device=device), **kw)
 
 
-def _assert_request_equal(got, want, exact=True):
+def _assert_request_equal(got, want):
     for k in want:
-        if exact or k == "majority_vote":
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        else:  # K5b's lin4 sums in fp32 atomics, in no fixed order
-            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _eager(pred, images, noise):
@@ -580,7 +581,7 @@ def test_graph_replay_equals_the_eager_program(cuda, name, batch):
     noise = torch.randn(pred._program.noise_shape(batch), generator=torch.Generator().manual_seed(5))
     eager = _eager(pred, images, noise)
     for _ in range(2):  # the capture's call, then a replay
-        _assert_request_equal(pred.predict(images, noise=noise), eager, exact=name != "serving-k5")
+        _assert_request_equal(pred.predict(images, noise=noise), eager)
 
 
 @pytest.mark.cuda
@@ -636,8 +637,7 @@ def test_bundle_round_trip_on_the_card(cuda, tmp_path, name):
     for b in (1, 3):
         images = np.random.default_rng(b).random((b, 32, 32, 3)).astype(np.float32)
         gen = lambda: torch.Generator(device=cuda).manual_seed(3)  # noqa: E731
-        _assert_request_equal(served.predict(images, generator=gen()), pred.predict(images, generator=gen()),
-                              exact=name != "serving-k5")
+        _assert_request_equal(served.predict(images, generator=gen()), pred.predict(images, generator=gen()))
     with pytest.raises(ValueError, match="exported on cuda and runs there only"):
         ExportedPredictor.load(str(tmp_path / "bundle"), device="cpu")
 
@@ -691,10 +691,7 @@ def test_graphed_eval_batch_equals_the_eager_one(cuda, name):
         eager = pipe.sample(x, noise, eager=True)
         for _ in range(2):  # the capture's call, then a replay
             graphed = pipe.sample(x, noise)
-            if name == "serving-k5":  # K5b's lin4 sums in fp32 atomics, in no fixed order
-                torch.testing.assert_close(graphed, eager, rtol=0, atol=1e-6)
-            else:
-                assert torch.equal(graphed, eager)
+            assert torch.equal(graphed, eager)
         assert graphed.shape == (2, 4, b, 2) and torch.isfinite(graphed).all()
 
 
@@ -773,9 +770,9 @@ def test_int8_eps_l12_at_ci_20_matches_plain(cuda, shape, dtype):
 def test_int8_eps_l34_at_more_than_two_classes(cuda, shape, classes):
     """K5b's lin4 epilogue above its 2 classes a pass (C = 10 takes 5
     passes), on float32 rows as ``serving`` stores them (1e-4: lin4 sums in
-    another order than the plain product). Where N fits one column tile
-    (the digits shape) the sum is in a fixed order: two calls agree bit for
-    bit."""
+    another order than the plain product). The sum is in a fixed order at
+    one column tile (the digits shape) and at 32 (the path's): calls agree
+    bit for bit."""
     m, r, k, n = shape
     rng = np.random.default_rng(20)
     h2, hmax2, w_q3, s3, c3, cs3, _, _ = int8_layer_inputs(rng, m, r, k, n, cuda, torch.float32, True)
@@ -785,8 +782,7 @@ def test_int8_eps_l34_at_more_than_two_classes(cuda, shape, classes):
     torch.cuda.synchronize()
     assert launch_counts["int8_eps_fused_l34"] == 1 and out.shape == (m, r, classes)
     _close(out, int8_eps_l34_plain(h2, hmax2, w_q3, s3, c3, cs3, w4), 1e-4)
-    if n <= 128:
-        assert all(torch.equal(out, int8_eps_l34(h2, hmax2, w_q3, s3, c3, cs3, w4)) for _ in range(3))
+    assert all(torch.equal(out, int8_eps_l34(h2, hmax2, w_q3, s3, c3, cs3, w4)) for _ in range(3))
 
 
 @pytest.mark.cuda
@@ -844,3 +840,100 @@ def test_parity_request_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
         np.testing.assert_allclose(got["out"][k], one["out"][k], rtol=1e-4, atol=1e-5, err_msg=k)
     assert got["launches"] == one["launches"]
     assert got["launches"]["fused_linear_act"] == 3 * TM.T_STEPS
+
+
+def _qkv_on_card(cuda, rng, b, n, h, d, dtype):
+    """q, k, v as the strided slices of one fused qkv projection on the card."""
+    qkv, _ = qkv_views(rng, b, n, h, d)
+    qkv = qkv.to(cuda, dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 48, 64])
+@pytest.mark.parametrize("n", [1, 64, 65, 196, 197, 198, 256, 300])
+def test_flash_attention_bf16_bodies_by_the_plan(cuda, n, d):
+    """bf16 at D = 64 (and ConViT's 48, zero-padded to 64 by TMA) up to 256
+    keys runs the ``wgmma`` body; D = 12 (the digits ViT's 24-byte heads,
+    no padded copies) and N = 300 the ``mma`` body: each against the plain
+    version (1e-2), and a second launch bit for bit. The plan's shared
+    memory is the kernel's own count."""
+    q, k, v = _qkv_on_card(cuda, np.random.default_rng(n + d), 3, n, 4, d, torch.bfloat16)
+    _, vec, tma = attn_mod._layout(q, k, v)
+    p = attn_mod.attention_plan(3, n, 4, d, torch.bfloat16, vec, tma)
+    assert p.route == ("wgmma" if d % 8 == 0 and n <= 256 else "mma")
+    lib = attn_mod._lib()
+    assert lib.flash_attention_smem_bytes(attn_mod.ROUTES[p.route], n, p.dp, p.keys, p.rows, p.tpu, 0) == p.smem_bytes
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1 and out.shape == (3, n, 4, d) and out.is_contiguous()
+    _close(out, flash_attention_plain(q, k, v), 1e-2)
+    assert torch.equal(out, flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 70])
+def test_flash_attention_wgmma_body_at_the_serving_batches(cuda, b):
+    """The ViT's shape at batch 8 (query tiles split across 132 blocks) and
+    at the evidence batch 70 (1680 units on 132 persistent blocks)."""
+    q, k, v = _qkv_on_card(cuda, np.random.default_rng(b), b, 197, 12, 64, torch.bfloat16)
+    assert attn_mod.attention_plan(b, 197, 12, 64, torch.bfloat16).grid == 132
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(out, flash_attention_plain(q, k, v), 2e-2)
+    assert torch.equal(out, flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 48, 64])
+@pytest.mark.parametrize("n", [16, 197, 198])
+def test_flash_attention_fp32_register_tiled_body(cuda, n, d):
+    """The ``simt`` body at the digits', ConViT's and ViT's head widths:
+    1e-4 against the plain version, and a second launch bit for bit."""
+    q, k, v = _qkv_on_card(cuda, np.random.default_rng(3 * n + d), 4, n, 3, d, torch.float32)
+    assert attn_mod.attention_plan(4, n, 3, d, torch.float32).route == "simt"
+    launch_counts.clear()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1
+    _close(out, flash_attention_plain(q, k, v), 1e-4)
+    assert torch.equal(out, flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 375])
+def test_flash_attention_fp32_loads_v_late_past_227_kb(cuda, n):
+    """Past 263 keys at D = 64, K, V, the Q tile and the scores pass a
+    block's shared memory: V comes after S, into K's place."""
+    q, k, v = _qkv_on_card(cuda, np.random.default_rng(n), 2, n, 2, 64, torch.float32)
+    p = attn_mod.attention_plan(2, n, 2, 64, torch.float32)
+    assert p.route == "simt" and p.late_v
+    assert attn_mod._lib().flash_attention_smem_bytes(2, n, 64, n, p.rows, 1, 1) == p.smem_bytes
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(out, flash_attention_plain(q, k, v), 1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_eps_l34_full_width_is_bit_reproducible(cuda):
+    """D5: K5b at (5, 160, 4096) -> 4096 with lin4 N = 2, 32 column tiles:
+    the tiles' sums meet in a fixed order, so launches agree bit for bit,
+    also inside a CUDA graph (the last block resets its count)."""
+    m, r, k, n = 5, 160, 4096, 4096
+    rng = np.random.default_rng(40)
+    h2, hmax2, w_q3, s3, c3, cs3, _, _ = int8_layer_inputs(rng, m, r, k, n, cuda, torch.bfloat16, True)
+    w4 = torch.from_numpy(rng.standard_normal((m, n, 2)).astype(np.float32) * n**-0.5).to(cuda, torch.bfloat16)
+    args = (h2, hmax2, w_q3, s3, c3, cs3, w4)
+    first = int8_eps_l34(*args)
+    _close(first, int8_eps_l34_plain(*args), 1e-4)
+    assert all(torch.equal(first, int8_eps_l34(*args)) for _ in range(4))
+    graph = torch.cuda.CUDAGraph()
+    int8_eps_l34(*args)  # warm-up on the current stream
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = int8_eps_l34(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)

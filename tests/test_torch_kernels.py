@@ -281,33 +281,6 @@ def test_wgmma_plan_is_a_function_of_the_shape_with_the_noted_waves(shape):
         assert p.busy == pytest.approx(160 / (132 * 1.25))
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
-def test_flash_attention_body_bf16_takes_d_multiple_of_16(d):
-    assert attn_mod.body(BF16, d) == "mma"
-
-
-@pytest.mark.parametrize("d", [4, 8, 24, 64, 100])
-def test_flash_attention_body_f32_is_scalar_at_any_d(d):
-    assert attn_mod.body(F32, d) == "scalar"
-
-
-@pytest.mark.parametrize("d", [8, 24, 40, 136, 144])
-def test_flash_attention_body_bf16_raises_off_the_tensor_core_shapes(d):
-    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
-        attn_mod.body(BF16, d)
-
-
-def test_flash_attention_check_raises_on_bf16_d_24():
-    """D = 24 in bf16 is whole 16-byte vectors but no k16 step: _check
-    refuses it, while fp32 D = 8 (above) is taken."""
-    qkv, _ = qkv_views(np.random.default_rng(5), 2, 5, 2, 24)
-    qkv = qkv.bfloat16()
-    with pytest.raises(ValueError, match="multiple of 16"):
-        attn_mod._check(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-    qkv, _ = qkv_views(np.random.default_rng(5), 2, 5, 2, 32)
-    assert attn_mod._check(*(qkv.bfloat16()[:, :, i] for i in range(3))) == (2, 5, 2, 32)
-
-
 @pytest.mark.parametrize("k", [4, 16, 18, 20, 64, 4096])
 def test_fused_linear_act_takes_a_float32_gate_beside_bf16_at_any_k(k):
     """F6: lin1's gate is the float32 features beside bf16 y_in and w1, at
@@ -327,19 +300,176 @@ def test_fused_linear_act_takes_a_float32_gate_beside_bf16_at_any_k(k):
     assert out.dtype == BF16 and out.shape == (2, 3, 8)
 
 
-@pytest.mark.parametrize("d, dp", [(8, 16), (12, 16), (16, 16), (24, 32), (40, 48), (100, 112), (128, 128)])
-def test_pad_heads_keeps_the_attention_of_the_real_d(d, dp):
-    """F7: a bfloat16 head of width D runs on zero-padded copies of width
-    the next multiple of 16, with D's scale: scores and the sliced output
-    are those of the unpadded heads; float32 heads are not padded."""
-    assert attn_mod.padded_head_dim(BF16, d) == dp and attn_mod.padded_head_dim(F32, d) == d
+# K3's launch geometry: attention_plan's route, grid and shared memory, and
+# the layout the wrapper reads off the views (pure functions, no card).
+ROUTE_CASES = [
+    # bfloat16 at D = 64 and N <= 256 with a TMA layout: the wgmma body
+    *[(BF16, n, 64, 16, True, "wgmma", 64) for n in (1, 64, 65, 196, 197, 198, 256)],
+    # bfloat16 past 256 keys, off D = 64, or off TMA's strides: the mma body
+    *[(BF16, n, 64, 16, True, "mma", 64) for n in (257, 300)],
+    *[(BF16, 196, d, 16, True, "wgmma", 64) for d in (8, 16, 24, 32, 40, 48)],  # 64-column boxes, zeros past D
+    *[(BF16, 196, d, 16, True, "mma", d) for d in (80, 128)],
+    *[(BF16, 197, d, vec, False, "mma", dp) for d, vec, dp in ((8, 8, 16), (12, 8, 16), (24, 16, 32), (40, 16, 48),
+                                                               (100, 8, 112), (2, 4, 16))],
+    (BF16, 197, 64, 8, True, "mma", 64),
+    (BF16, 197, 64, 16, False, "mma", 64),
+    # float32 of any D of whole 16-byte vectors: the simt body
+    *[(F32, n, d, 16, True, "simt", d) for n, d in ((197, 4), (197, 8), (197, 24), (197, 64), (197, 100),
+                                                    (16, 12), (198, 12), (197, 48), (300, 12))],
+]
+
+
+@pytest.mark.parametrize("dtype, n, d, vec, tma, route, dp", ROUTE_CASES)
+def test_attention_plan_routes_each_dtype_n_and_d(dtype, n, d, vec, tma, route, dp):
+    p = attn_mod.attention_plan(8, n, 12, d, dtype, vec, tma)
+    assert (p.route, p.dp) == (route, dp)
+    assert p.q_tiles == -(-n // p.rows) and p.rows == (128 if route == "simt" and 8 * 12 * -(-n // 128) >= 264 else 64)
+    if route == "wgmma":
+        assert p.keys == -(-n // 16) * 16 and p.threads == 384 and p.vb == 16
+    elif route == "mma":  # the widest copy that divides D's bytes and the strides
+        assert p.keys == -(-n // 32) * 32 and p.vb == min(vec, (2 * d) & -(2 * d)) and (2 * d) % p.vb == 0
+    else:
+        assert p.keys == n and p.threads == 4 * p.rows
+
+
+@pytest.mark.parametrize(
+    "dtype, n, d, vec, error, match",
+    [
+        (BF16, 196, 136, 16, ValueError, "even D up to 128"),
+        (BF16, 196, 144, 16, ValueError, "even D up to 128"),
+        (BF16, 196, 7, 16, ValueError, "even D up to 128"),
+        (BF16, 196, 64, 2, ValueError, "4-byte aligned"),
+        (F32, 196, 6, 16, ValueError, "multiples of 16 bytes"),
+        (F32, 196, 64, 8, ValueError, "multiples of 16 bytes"),
+        (F32, 2000, 64, 16, ValueError, "do not fit in shared memory"),
+        (F32, 400, 64, 16, ValueError, "do not fit in shared memory"),
+        (BF16, 2000, 128, 16, ValueError, "do not fit in shared memory"),
+        (torch.float16, 196, 64, 16, TypeError, "float32 or bfloat16"),
+    ],
+)
+def test_attention_plan_raises_on_what_no_body_takes(dtype, n, d, vec, error, match):
+    with pytest.raises(error, match=match):
+        attn_mod.attention_plan(2, n, 3, d, dtype, vec)
+
+
+def _plan_tiles(p, b, h):
+    """Every (b, h, query tile) the plan's blocks run, in launch order."""
+    if p.route != "wgmma":  # one block a (tile, h, b)
+        return [(bb, hh, t) for bb in range(b) for hh in range(h) for t in range(p.q_tiles)]
+    seen = []
+    for block in range(p.grid):
+        for u in range(block, p.units, p.grid):
+            pair, split = divmod(u, p.splits)
+            for i in range(p.tpu):
+                if split * p.tpu + i < p.q_tiles:
+                    seen.append((pair // h, pair % h, split * p.tpu + i))
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("b, n, h, d", [(8, 196, 12, 64), (8, 197, 12, 64), (70, 197, 12, 64), (70, 196, 12, 64),
+                                        (30, 198, 12, 64), (30, 197, 16, 48), (64, 17, 4, 12), (1, 1, 1, 64),
+                                        (3, 65, 2, 64), (2, 256, 3, 64), (2, 300, 3, 64)])
+def test_attention_plan_grid_covers_every_tile_once(dtype, b, n, h, d):
+    p = attn_mod.attention_plan(b, n, h, d, dtype)
+    tiles = _plan_tiles(p, b, h)
+    assert sorted(tiles) == [(bb, hh, t) for bb in range(b) for hh in range(h) for t in range(-(-n // p.rows))]
+    if p.route == "wgmma":
+        assert p.grid == min(attn_mod.SMS, p.units) and p.units == b * h * p.splits
+        assert (p.splits - 1) * p.tpu < p.q_tiles <= p.splits * p.tpu  # no unit is empty
+    else:
+        assert p.grid == p.units == p.q_tiles * h * b
+
+
+@pytest.mark.parametrize("b, n, splits, tpu, units, rounds", [
+    (8, 196, 2, 2, 192, 2),    # 96 pairs: query tiles split across blocks to fill the 132 SMs
+    (8, 197, 2, 2, 192, 2),
+    (70, 197, 2, 2, 1680, 13),  # 840 pairs: 13 tile rounds, where whole pairs take 14
+    (30, 197, 1, 4, 360, 6),   # 360 pairs: splitting gains no round
+])
+def test_attention_plan_fills_the_card_at_batch_8_and_70(b, n, splits, tpu, units, rounds):
+    p = attn_mod.attention_plan(b, n, 12, 64, BF16)
+    assert (p.route, p.splits, p.tpu, p.units, p.grid, p.rounds) == ("wgmma", splits, tpu, units, 132, rounds)
+
+
+@pytest.mark.parametrize("dtype, b, n, h, d", [
+    (BF16, 8, 196, 12, 64), (BF16, 70, 197, 12, 64), (BF16, 30, 198, 12, 64), (BF16, 2, 256, 3, 64),
+    (BF16, 2, 300, 3, 64), (BF16, 64, 17, 4, 12), (F32, 70, 197, 12, 64), (F32, 30, 198, 12, 64),
+    (F32, 30, 197, 16, 48), (F32, 64, 17, 4, 12), (F32, 2, 256, 3, 64), (F32, 2, 300, 3, 64),
+    (F32, 2, 375, 3, 64), (F32, 2, 197, 3, 132), (F32, 70, 375, 12, 64),
+])
+def test_attention_plan_shared_memory_fits_a_block(dtype, b, n, h, d):
+    """A block's shared memory, as each body lays it out, within 227 KB."""
+    p = attn_mod.attention_plan(b, n, h, d, dtype)
+    if p.route == "wgmma":  # barriers, 1024-byte alignment, 2 stages of K, V and the unit's Q tiles
+        want = 128 + 1024 + 2 * (2 * p.keys * 128 + p.tpu * 64 * 128)
+    elif p.route == "mma":  # K and V padded to 32 keys, the Q tile, rows of dp + 8
+        want = (2 * -(-n // 32) * 32 + 64) * (p.dp + 8) * 2
+    else:  # K, V (unless late), the Q tile at an odd number of vectors a row, the transposed scores
+        ld, rows = d + (4 if (d // 4) % 2 == 0 else 0), p.rows
+        want = (((1 if p.late_v else 2) * n + rows) * ld + n * (rows + 4)) * 4
+        assert p.late_v == (((2 * n + rows) * ld + n * (rows + 4)) * 4 > 232448)
+    assert p.smem_bytes == want <= 232448
+
+
+@pytest.mark.parametrize("d, route, dp", [(8, "wgmma", 64), (12, "mma", 16), (16, "wgmma", 64), (24, "wgmma", 64),
+                                          (40, "wgmma", 64), (100, "mma", 112), (128, "mma", 128)])
+def test_bf16_heads_of_any_even_width_are_padded_in_the_kernel(d, route, dp):
+    """F7 without copies: a bfloat16 head of width D is read at its real
+    width from the strided views and padded with zeros inside the kernel,
+    to 64 columns by the wgmma body's TMA boxes (D a multiple of 8 whose
+    strides are 16-byte multiples) or to a multiple of 16 in the mma body's
+    shared memory (the digits' D = 12: 24-byte rows), with D's scale. Zero
+    columns add nothing to q k^T and give zero output columns: the plain
+    attention of zero-padded heads, sliced, is that of the real heads."""
     qkv, (q, k, v) = qkv_views(np.random.default_rng(6), 2, 17, 4, d)
-    assert all(a is b for a, b in zip(attn_mod.pad_heads(q, k, v), (q, k, v)))  # float32: as they are
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    qp, kp, vp = attn_mod.pad_heads(qb, kb, vb)
-    assert qp.shape == (2, 17, 4, dp) and qp.is_contiguous() and attn_mod._check(qp, kp, vp) == (2, 17, 4, dp)
-    for padded, t in ((qp, qb), (kp, kb), (vp, vb)):
-        assert torch.equal(padded[..., :d], t) and not padded[..., d:].any()
-    s = torch.einsum("bnhd,bmhd->bhnm", qp.float(), kp.float()) * d**-0.5
-    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1).to(BF16), vp).to(BF16)[..., :d]
+    assert attn_mod._check(qb, kb, vb) == (2, 17, 4, d)
+    _, vec, tma = attn_mod._layout(qb, kb, vb)
+    p = attn_mod.attention_plan(2, 17, 4, d, BF16, vec, tma)
+    assert (p.route, p.dp) == (route, dp) and (2 * d) % p.vb == 0
+    pad = [torch.nn.functional.pad(t, (0, dp - d)) for t in (qb, kb, vb)]
+    s = torch.einsum("bnhd,bmhd->bhnm", pad[0].float(), pad[1].float()) * d**-0.5
+    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1).to(BF16), pad[2]).to(BF16)[..., :d]
     torch.testing.assert_close(out, flash_attention_plain(qb, kb, vb), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b, n, h, d, dtype, view, vec, tma", [
+    (8, 197, 12, 64, BF16, "qkv", 16, True),   # the ViT's fused projection
+    (64, 17, 4, 12, BF16, "qkv", 8, False),    # the digits ViT: 24-byte heads
+    (2, 5, 3, 64, BF16, "contiguous", 16, True),
+    (2, 5, 3, 64, BF16, "heads-major", 16, False),  # (B, H, N, D) transposed: H outside N
+    (1, 1, 1, 64, BF16, "qkv", 16, True),
+    (8, 197, 12, 64, F32, "qkv", 16, True),
+])
+def test_attention_layout_reads_vector_width_and_tma_off_the_views(b, n, h, d, dtype, view, vec, tma):
+    if view == "qkv":
+        x = torch.zeros(b, n, 3, h, d, dtype=dtype)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    elif view == "contiguous":
+        q = k = v = torch.zeros(b, n, h, d, dtype=dtype)
+    else:
+        q = k = v = torch.zeros(b, h, n, d, dtype=dtype).transpose(1, 2)
+    strides, got_vec, got_tma = attn_mod._layout(q, k, v)
+    assert (got_vec, got_tma) == (vec, tma)
+    assert strides[2] >= d or h == 1
+
+
+@pytest.mark.parametrize("m, r, n, c, flags, total", [
+    (5, 160, 4096, 2, 32, 32 + 4 * 5 * 32 * 160 * 2),      # full width at batch 8: 32 column tiles
+    (5, 1400, 4096, 2, 192, 192 + 4 * 5 * 32 * 1400 * 2),  # batch 70: 9 row tiles
+    (5, 640, 64, 10, 80, 80 + 4 * 5 * 1 * 640 * 10),       # the digits model: one column tile
+    (1, 1, 16, 1, 16, 16 + 4 * 1 * 1 * 1 * 1),
+    (2, 161, 129, 3, 16, 16 + 4 * 2 * 2 * 161 * 3),
+])
+def test_k5b_workspace_is_a_function_of_the_shape(m, r, n, c, flags, total):
+    """D5: K5b's column tiles leave their lin4 sums in a workspace, a count
+    a (member, row tile) then an (R, C) float32 slot a (member, column
+    tile) of lin3's GEMM plan, and the last block sums the slots in order."""
+    from ladine_tpu_torch.kernels.int8_eps_fused import l34_workspace_bytes
+    from ladine_tpu_torch.kernels.int8_linear import gemm_plan
+
+    p = gemm_plan(m, r, 4096, n)
+    assert l34_workspace_bytes(m, r, n, c) == (flags, total)
+    assert flags % 16 == 0 and flags >= 4 * m * p.row_tiles
+    assert total - flags == 4 * m * p.col_tiles * r * c
