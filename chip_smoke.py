@@ -25,9 +25,12 @@ Phases, each fatal on failure (no failure is caught):
    with its body and its schedule (``fused_linear.wgmma_plan``: blocks,
    waves, the split remainder's chunks, the busy share).
    The int8 kernels (K4 int8_linear_softplus in both schemes, K5a/K5b
-   int8_eps_fused_l12/_l34) also print one layer of the ``torch._int_mm``
-   int8 path as a yardstick, and their bounds use the int8 rate; K4 is
-   also timed at 20 and 1400 rows a member, and K5a's lin1 pass alone
+   int8_eps_fused_l12/_l34) print their GEMM's body (TMA + s8 ``wgmma``)
+   and schedule (``int8_linear.gemm_plan``: blocks, waves, the split
+   remainder's chunks, the busy share), one layer of the ``torch._int_mm``
+   int8 path and the GEMM alone in ``torch._int_mm`` (``int_mm_ms``, one
+   call a member on the same codes) as yardsticks, and their bounds use the
+   int8 rate; K4 is also timed at 20 and 1400 rows a member, and K5a's lin1 pass alone
    (a sub-record; its codes must equal the plain version's); a second K5b
    launch must give the same bits.
 3. A small fp32 predictor on the card against the same predictor on the CPU
@@ -509,6 +512,7 @@ def check_int8_kernels():
     yardstick."""
     from ladine_tpu_torch import kernels as K
     from ladine_tpu_torch.kernels import int8 as Q
+    from ladine_tpu_torch.kernels import int8_linear
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows, dev = torch.float32, "cuda"
@@ -528,6 +532,23 @@ def check_int8_kernels():
     x_sym = rnd(M, R, F_, lo=-2.0, hi=2.0, dtype=rows)  # lin2's input f * softplus(.) is signed
     x_zp = rnd(M, R, F_, lo=0.0, hi=2.0, dtype=rows)  # lin3's input is a softplus output
     entries = []
+
+    def plan(n_rows):
+        """The GEMM's body and schedule (int8_linear.gemm_plan) at n_rows rows a member."""
+        p = int8_linear.gemm_plan(M, n_rows, F_, F_)
+        print(f"    body={int8_linear.BODY} (TMA + s8 wgmma); plan at R={n_rows}: {p.tiles} tiles on {p.grid} "
+              f"blocks, {p.waves} wave(s), the last {p.tiles % p.grid or p.grid} tiles in {p.chunks} K-chunk(s), "
+              f"busy {p.busy:.4f}")
+        return dict(body=int8_linear.BODY, grid=p.grid, tiles=p.tiles, chunks=p.chunks, waves=p.waves, busy=p.busy)
+
+    def int_mm_ms(x, cs):
+        """The GEMM alone in cuBLAS, a torch._int_mm a member on the same codes (a yardstick the port
+        never calls; no quantizing, no epilogue)."""
+        xf = x.float()
+        xmax = xf.amax(-1, keepdim=True) if cs is not None else xf.abs().amax(-1, keepdim=True)
+        xq = Q.quantize_rows(xf, Q.div(torch.clamp_min(xmax, 1e-8), 254.0 if cs is not None else 127.0),
+                             cs is not None)
+        return cuda_ms(lambda: [torch._int_mm(xq[i], w_q[i]) for i in range(M)], 20)
 
     def timed(label, fn, plain, inputs, outs, work):
         got = fn()
@@ -554,17 +575,22 @@ def check_int8_kernels():
             return Q.softplus(z).to(rows)
 
         int8_path_ms = cuda_ms(int8_path_layer, 20)
-        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); yardstick: "
-              f"one torch._int_mm-path layer (kernels.int8) {int8_path_ms:.4f} ms")
+        gemm_ms = int_mm_ms(x, cs)
+        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); yardsticks: "
+              f"one torch._int_mm-path layer (kernels.int8) {int8_path_ms:.4f} ms, torch._int_mm "
+              f"(cuBLAS, GEMM only) {gemm_ms:.4f} ms")
         if k4 is None:
             k4 = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                      int8_path_ms=int8_path_ms, shape=f"x{tuple(x.shape)} fp32, w{tuple(w_q.shape)} int8")
+                      int8_path_ms=int8_path_ms, int_mm_ms=gemm_ms, **plan(R),
+                      shape=f"x{tuple(x.shape)} fp32, w{tuple(w_q.shape)} int8")
         else:
             k4["max_abs_err"] = max(k4["max_abs_err"], err)
             k4["zero_point_ms"] = ms
     # K4 (symmetric) at other row counts (batch 1 and batch 70 of the JAX
     # bench): the weight stream is fixed, x's re-reads and the work grow with R
     k4["rows_ms"], k4["rows_bound_ms"] = {str(R): k4["ms"]}, {str(R): k4["bound_ms"]}
+    k4["rows_int_mm_ms"] = {str(R): k4["int_mm_ms"]}
+    k4["rows_plan"] = {str(R): {key: k4[key] for key in ("grid", "tiles", "chunks", "waves", "busy")}}
     for n_rows in (20, 1400):
         x = rnd(M, n_rows, F_, lo=-2.0, hi=2.0, dtype=rows)
         args = (x, x.float().abs().amax(-1, keepdim=True).contiguous(), w_q, s, c, None)
@@ -576,7 +602,10 @@ def check_int8_kernels():
         k4["rows_ms"][str(n_rows)] = cuda_ms(lambda: K.int8_linear_softplus(*args), 50)
         b_ms, b_by = bound((*args, *got), (2 * M * n_rows * F_ * F_, INT8_OP_PER_S))
         k4["rows_bound_ms"][str(n_rows)] = b_ms
-        print(f"    ms={k4['rows_ms'][str(n_rows)]:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        k4["rows_int_mm_ms"][str(n_rows)] = int_mm_ms(x, None)
+        print(f"    ms={k4['rows_ms'][str(n_rows)]:.4f} bound_ms={b_ms:.4f} ({b_by}) torch._int_mm (cuBLAS, GEMM "
+              f"only) {k4['rows_int_mm_ms'][str(n_rows)]:.4f}")
+        k4["rows_plan"][str(n_rows)] = {key: v for key, v in plan(n_rows).items() if key != "body"}
     entries.append(dict(
         name="int8_linear_softplus", route="cuda", source="ladine_tpu_torch/csrc/int8_linear.cu",
         replaces="ladine_tpu/kernels/int8_pallas.py:136", library_ms=None, **k4))
@@ -607,11 +636,12 @@ def check_int8_kernels():
         f"int8_eps_fused_l12 f{tuple(f.shape)} w2{tuple(w_q.shape)}", lambda: K.int8_eps_l12(*args),
         lambda: K.int8_eps_l12_plain(*args), args, ("h2", "hmax2"),
         [(2 * M * R * F_ * F_, INT8_OP_PER_S), (2 * M * R * 2 * C * F_, FP32_FLOP_PER_S)])
-    print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); torch._int_mm (cuBLAS, GEMM "
+          f"only) {k4['int_mm_ms']:.4f}")
     entries.append(dict(
         name="int8_eps_fused_l12", route="cuda", source="ladine_tpu_torch/csrc/int8_eps_fused.cu",
         replaces="ladine_tpu/kernels/int8_pallas.py:391", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, lin1=lin1,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, int_mm_ms=k4["int_mm_ms"], lin1=lin1, **plan(R),
         shape=f"f{tuple(f.shape)} fp32, w2{tuple(w_q.shape)} int8"))
 
     # K5b: lin3 (zero-point) + lin4 (N = C)
@@ -628,10 +658,12 @@ def check_int8_kernels():
           f"{'equal bit for bit' if repeat else 'DIFFER'}")
     if not repeat:
         raise AssertionError("int8_eps_fused_l34: two launches on the same inputs differ")
+    l34_int_mm_ms = int_mm_ms(h2, colsum)
+    print(f"    torch._int_mm (cuBLAS, GEMM only) {l34_int_mm_ms:.4f}")
     entries.append(dict(
         name="int8_eps_fused_l34", route="cuda", source="ladine_tpu_torch/csrc/int8_eps_fused.cu",
         replaces="ladine_tpu/kernels/int8_pallas.py:442", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, int_mm_ms=l34_int_mm_ms, **plan(R),
         shape=f"h2{tuple(h2.shape)} fp32, w3{tuple(w_q.shape)} int8, w4{tuple(w4.shape)} fp32"))
     return entries
 

@@ -421,41 +421,14 @@ constexpr int PART_FLOATS = SLABS * 64 * BN;          // a block's partial tile 
 constexpr int FLAG_BYTES = 1024, MAX_GRID = FLAG_BYTES / 4;  // the counts lead the workspace
 }  // namespace wg_cfg
 
-// The schedule of kernels/fused_linear.py::wgmma_plan: tiles of BM rows x BN
-// columns of one member, row tile fastest, each `steps` BK-steps of K deep.
-// Block b runs tiles b, b + grid, ... whole for tiles / grid rounds, all
-// blocks of a round at the same K step; the last tiles % grid tiles are
-// split in K into `chunks` equal parts, chunk q of remainder tile j run by
-// block q * rem + j (so neighbours stay at one K step), and the last of
-// its blocks to finish adds the partial tiles in chunk order.
-struct WgSched {
-  int row_tiles, col_tiles, steps, tiles, grid, chunks;
-};
+// The schedule of kernels/fused_linear.py::wgmma_plan (hopper::WgSched,
+// walked by hopper::Segments): tiles of BM rows x BN columns, each `steps`
+// BK-steps of K deep; the last of a split tile's blocks to finish adds the
+// partial tiles in chunk order.
+using hopper::Segments;
+using hopper::WgSched;
 
-// The segments of one block in the order it runs them: a tile and the steps
-// [kb, ke) of its K; split: the remainder tile's index, else -1. Producer
-// and consumers walk the same list.
-struct Segments {
-  int round, rounds, rem;
-  __device__ Segments(const WgSched& s) : round(0), rounds(s.tiles / s.grid), rem(s.tiles % s.grid) {}
-  __device__ bool next(const WgSched& s, int& tile, int& kb, int& ke, int& split) {
-    const int b = blockIdx.x;
-    split = -1;
-    if (round < rounds) {
-      tile = b + round++ * s.grid, kb = 0, ke = s.steps;
-      return true;
-    }
-    if (round++ > rounds || b >= rem * s.chunks) return false;
-    const int q = b / rem, j = b % rem;
-    tile = rounds * s.grid + j, kb = q * s.steps / s.chunks, ke = (q + 1) * s.steps / s.chunks;
-    if (s.chunks > 1) split = j;
-    return true;
-  }
-};
-
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(wg_cfg::SLABS * 128) : "memory");
-}
+__device__ __forceinline__ void consumers_sync() { hopper::named_sync<1, wg_cfg::SLABS * 128>(); }
 
 // Warp-specialised: warpgroups 0 .. SLABS-1 multiply (wgmma) and run the
 // epilogue, the last warpgroup's first thread issues the TMA loads. A block
@@ -597,11 +570,8 @@ template <typename MT>
 int launch_wgmma(const void* x, const void* w, const void* a, const void* c, const void* mult, void* out,
                  void* work, int M, int R, int K, int N, const WgSched& s, cudaStream_t st) {
   using namespace wg_cfg;
-  const int rem = s.tiles % max(s.grid, 1);
-  const bool split = rem > 0 && s.chunks > 1;
-  if (s.grid < 1 || s.grid > s.tiles || s.tiles != M * s.row_tiles * s.col_tiles || s.chunks < 1 ||
-      s.chunks > s.steps || (rem > 0 && rem * s.chunks > s.grid) || (split && (work == nullptr || rem > MAX_GRID)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool split = s.grid > 0 && s.tiles % s.grid > 0 && s.chunks > 1;
+  if (!hopper::sched_ok(s, M, MAX_GRID) || (split && work == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;  // x as (M, R, K) and w as (M, K, N), 64 x 64 boxes
   if (!hopper::bf16_map_3d(&xmap, x, K, R, M, 64, 64) || !hopper::bf16_map_3d(&wmap, w, N, K, M, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -31,10 +31,9 @@
 // summed in order without fused multiply-adds, as the plain version sums
 // them, so both pick the same codes. l34: the zero-point codes of h2 come
 // from the quantizing pre-pass (as in K4), and the GEMM's LIN4 epilogue
-// contracts each h3 tile with its rows of w4; the tile's cluster adds the
-// ranks' partial sums of each row in rank order into its column tile's slot
-// of a workspace, and the last block of a row tile to count in adds the
-// slots in column-tile order into out: bit-reproducible at every N.
+// contracts each h3 tile with its rows of w4 into its column tile's slot of
+// a workspace, and the last block of a row tile to count in adds the slots
+// in column-tile order into out: bit-reproducible at every N.
 
 #include "int8_gemm.cuh"
 
@@ -115,25 +114,25 @@ int launch_lin1(const void* f, const void* y_in, const void* w1, const void* a1,
 template <typename T>
 int launch_l12(const void* f, const void* y_in, const void* w1, const void* a1, const void* c1,
                void* xq, void* xmax, const void* w2, const void* s2, const void* c2, void* h2,
-               void* hmax2, int M, int R, int K, int Ci, int N, int threads, int row_tiles,
-               int col_tiles, cudaStream_t st) {
+               void* hmax2, void* work, int M, int R, int K, int Ci, int N, int threads,
+               const hopper::WgSched& sc, cudaStream_t st) {
   int err = launch_lin1<T>(f, y_in, w1, a1, c1, xq, xmax, M, R, K, Ci, threads, st);
   if (err != 0) return err;
   return launch_gemm<T, STORE>(static_cast<const int8_t*>(xq), static_cast<const float*>(xmax), w2,
-                               s2, c2, nullptr, h2, hmax2, nullptr, nullptr, nullptr, M, R, K, N, 0,
-                               row_tiles, col_tiles, st);
+                               s2, c2, nullptr, h2, hmax2, nullptr, nullptr, work, nullptr, M, R, K, N, 0,
+                               sc, st);
 }
 
 template <typename T>
 int launch_l34(const void* h2, const void* hmax2, void* xq, const void* w3, const void* s3,
-               const void* c3, const void* colsum3, const void* w4, void* out, void* work, int M, int R,
-               int K, int N, int C, int row_tiles, int col_tiles, cudaStream_t st) {
+               const void* c3, const void* colsum3, const void* w4, void* out, void* work, void* lin4_work,
+               int M, int R, int K, int N, int C, const hopper::WgSched& sc, cudaStream_t st) {
   int err = launch_quantize_rows<T>(h2, static_cast<const float*>(hmax2), static_cast<int8_t*>(xq),
                                     (long long)M * R, K, true, st);
   if (err != 0) return err;
   return launch_gemm<T, LIN4>(static_cast<const int8_t*>(xq), static_cast<const float*>(hmax2), w3,
-                              s3, c3, colsum3, nullptr, nullptr, w4, out, work, M, R, K, N, C,
-                              row_tiles, col_tiles, st);
+                              s3, c3, colsum3, nullptr, nullptr, w4, out, work, lin4_work, M, R, K, N, C,
+                              sc, st);
 }
 
 }  // namespace
@@ -150,34 +149,39 @@ extern "C" int int8_lin1_launch(const void* f, const void* y_in, const void* w1,
 }
 
 // xq: (M, R, K) int8 scratch, xmax: (M, R) fp32 scratch (max|h1|),
-// hmax2: (M, R) fp32, zero-filled; threads: the lin1 pass's block, row_tiles,
-// col_tiles: the GEMM's plan (kernels/int8_linear.py::gemm_plan).
+// hmax2: (M, R) fp32, zero-filled; work: the GEMM plan's split workspace
+// (null where no tile is split); threads: the lin1 pass's block; row_tiles
+// .. chunks: the GEMM's schedule (kernels/int8_linear.py::gemm_plan).
 extern "C" int int8_eps_l12_launch(const void* f, const void* y_in, const void* w1, const void* a1,
                                    const void* c1, void* xq, void* xmax, const void* w2,
-                                   const void* s2, const void* c2, void* h2, void* hmax2, int M,
-                                   int R, int K, int Ci, int N, int threads, int row_tiles,
-                                   int col_tiles, int is_bf16, void* stream) {
+                                   const void* s2, const void* c2, void* h2, void* hmax2, void* work, int M,
+                                   int R, int K, int Ci, int N, int threads, int row_tiles, int col_tiles,
+                                   int steps, int tiles, int grid, int chunks, int is_bf16, void* stream) {
+  const hopper::WgSched sc{row_tiles, col_tiles, steps, tiles, grid, chunks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_l12<__nv_bfloat16>(f, y_in, w1, a1, c1, xq, xmax, w2, s2, c2, h2, hmax2, M, R, K,
-                                     Ci, N, threads, row_tiles, col_tiles, st);
-  return launch_l12<float>(f, y_in, w1, a1, c1, xq, xmax, w2, s2, c2, h2, hmax2, M, R, K, Ci, N,
-                           threads, row_tiles, col_tiles, st);
+    return launch_l12<__nv_bfloat16>(f, y_in, w1, a1, c1, xq, xmax, w2, s2, c2, h2, hmax2, work, M, R, K,
+                                     Ci, N, threads, sc, st);
+  return launch_l12<float>(f, y_in, w1, a1, c1, xq, xmax, w2, s2, c2, h2, hmax2, work, M, R, K, Ci, N,
+                           threads, sc, st);
 }
 
 // xq: (M, R, K) int8 scratch; out: (M, R, C) fp32 (every element written);
-// work: the workspace of kernels/int8_eps_fused.py::l34_workspace_bytes,
+// work: the GEMM plan's split workspace (null where no tile is split);
+// lin4_work: the workspace of kernels/int8_eps_fused.py::l34_workspace_bytes,
 // its counts zero (the kernel leaves them zero).
 extern "C" int int8_eps_l34_launch(const void* h2, const void* hmax2, void* xq, const void* w3,
                                    const void* s3, const void* c3, const void* colsum3,
-                                   const void* w4, void* out, void* work, int M, int R, int K, int N,
-                                   int C, int row_tiles, int col_tiles, int is_bf16, void* stream) {
+                                   const void* w4, void* out, void* work, void* lin4_work, int M, int R,
+                                   int K, int N, int C, int row_tiles, int col_tiles, int steps, int tiles,
+                                   int grid, int chunks, int is_bf16, void* stream) {
+  const hopper::WgSched sc{row_tiles, col_tiles, steps, tiles, grid, chunks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_l34<__nv_bfloat16>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, M, R, K, N,
-                                     C, row_tiles, col_tiles, st);
-  return launch_l34<float>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, M, R, K, N, C,
-                           row_tiles, col_tiles, st);
+    return launch_l34<__nv_bfloat16>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, lin4_work, M, R, K,
+                                     N, C, sc, st);
+  return launch_l34<float>(h2, hmax2, xq, w3, s3, c3, colsum3, w4, out, work, lin4_work, M, R, K, N, C,
+                           sc, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

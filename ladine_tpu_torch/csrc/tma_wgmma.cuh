@@ -1,15 +1,17 @@
-// Hopper (sm_90a) building blocks of the K1 wgmma body (fused_linear.cu) and
-// the K3 wgmma body (attention.cu): mbarriers, TMA tile loads, the tensor
-// maps they read, wgmma descriptors, the bf16 products (m64n128k16, and
-// m64n64k16 / m64n16k16 with B K-major or MN-major, A from shared memory or
-// from registers), and setmaxnreg.
+// Hopper (sm_90a) building blocks of the K1 wgmma body (fused_linear.cu),
+// the K3 wgmma body (attention.cu) and the int8 GEMM of K4/K5
+// (int8_gemm.cuh): mbarriers, TMA tile loads, the tensor maps they read,
+// wgmma descriptors, the bf16 products (m64n128k16, and m64n64k16 /
+// m64n16k16 with B K-major or MN-major, A from shared memory or from
+// registers), the s8 product m64n128k32, setmaxnreg, and the persistent
+// schedule that K1's and the int8 GEMM's bodies walk.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
-// whose inner extent is 64 bf16 (128 bytes) lands as rows of 128 bytes, the
-// 16-byte chunk c of row r stored at chunk c ^ (r % 8), in atoms of 8 rows
-// (1024 bytes) that start 1024-byte aligned. wgmma reads such tiles through
-// a descriptor (start address, leading and stride byte offsets in 16-byte
-// units, layout type 1 = 128-byte swizzle):
+// whose inner extent is 128 bytes (64 bf16, 128 int8) lands as rows of 128
+// bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), in atoms
+// of 8 rows (1024 bytes) that start 1024-byte aligned. wgmma reads such
+// tiles through a descriptor (start address, leading and stride byte
+// offsets in 16-byte units, layout type 1 = 128-byte swizzle):
 //   K-major (A = x, 64 rows x 64 K):   SBO = 1024 bytes between 8-row atoms;
 //     the k16 step kk starts 32 kk bytes into each row (the hardware applies
 //     the swizzle to the address, as TMA did).
@@ -19,6 +21,9 @@
 //     bytes) in.
 //   K-major B (K3's keys, 64 n rows x 64 K): as the K-major A, SBO = 1024
 //     bytes between 8-row atoms, the k16 step kk 32 kk bytes into each row.
+//   int8 (both operands K-major, as 8-bit wgmma requires; rows of 128 K):
+//     the same descriptor, SBO = 1024 bytes; the k32 step kk starts 32 kk
+//     bytes into each row.
 
 #pragma once
 
@@ -109,20 +114,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a contiguous bf16 array (d2, d1, d0), d0 innermost, read in
-// boxes of (1, b1, b0) with the 128-byte swizzle (b0 = 64: 128 bytes).
-// Returns false where the CUDA driver refuses it.
-inline bool bf16_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
-                        uint32_t b1) {
+// A map of a contiguous array (d2, d1, d0) of `type` (elements of `bytes`
+// bytes), d0 innermost, read in boxes of (1, b1, b0) with the 128-byte
+// swizzle (b0 elements: 128 bytes). Returns false where the CUDA driver
+// refuses it (a base or a row not 16-byte aligned, among others).
+inline bool map_3d(CUtensorMap* map, CUtensorMapDataType type, uint64_t bytes, const void* base, uint64_t d0,
+                   uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t dims[3] = {d0, d1, d2};
-  cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, of dims 1 and 2
+  cuuint64_t strides[2] = {d0 * bytes, d0 * d1 * bytes};  // bytes, of dims 1 and 2
   cuuint32_t box[3] = {b0, b1, 1};
   cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 (b0 = 64) and int8 (b0 = 128) maps of map_3d
+inline bool bf16_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
+                        uint32_t b1) {
+  return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2, b0, b1);
+}
+inline bool s8_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
+                      uint32_t b1) {
+  return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, d0, d1, d2, b0, b1);
 }
 
 // A map of a strided bf16 array of 4 dims, d0 innermost (unit stride), the
@@ -159,6 +175,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous product
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // d (64 x 128 fp32, a warpgroup's fragments) += A (64 x 16, K-major) @
 // B (16 x 128, MN-major: imm-trans-b = 1), bf16 operands in shared memory.
@@ -239,6 +256,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 128 s32) += A (64 x 32 s8, K-major) @ B (32 x 128 s8, K-major),
+// both in shared memory (8-bit wgmma takes both K-major and has no
+// transpose or scale immediates). Fragments as m64n128k16's: d[4 j + e] is
+// row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) + e % 2.
+#define WG_R8(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+                    "+r"(d[i + 6]), "+r"(d[i + 7])
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : WG_R8(d, 0), WG_R8(d, 8), WG_R8(d, 16), WG_R8(d, 24), WG_R8(d, 32), WG_R8(d, 40), WG_R8(d, 48),
+        WG_R8(d, 56)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef WG_R8
+
 #undef WG_F8
 
 // ---- registers --------------------------------------------------------------
@@ -250,6 +291,57 @@ __device__ __forceinline__ void regs_dealloc() {
 template <int N>
 __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- the persistent schedule ------------------------------------------------
+
+// The schedule of kernels/fused_linear.py::wgmma_plan (K1's wgmma body; the
+// int8 GEMM's through kernels/int8_linear.py::gemm_plan): tiles of one
+// member, row tile fastest, each `steps` K-steps deep. Block b runs tiles
+// b, b + grid, ... whole for tiles / grid rounds, all blocks of a round at
+// the same K step; the last tiles % grid tiles are split in K into
+// `chunks` equal parts, chunk q of remainder tile j run by block q * rem +
+// j (so neighbours stay at one K step), and the last of its blocks to
+// finish completes the tile.
+struct WgSched {
+  int row_tiles, col_tiles, steps, tiles, grid, chunks;
+};
+
+// The segments of one block in the order it runs them: a tile and the steps
+// [kb, ke) of its K; split: the remainder tile's index, else -1. Producer
+// and consumers walk the same list (kernels/fused_linear.py::wgmma_segments).
+struct Segments {
+  int round, rounds, rem;
+  __device__ Segments(const WgSched& s) : round(0), rounds(s.tiles / s.grid), rem(s.tiles % s.grid) {}
+  __device__ bool next(const WgSched& s, int& tile, int& kb, int& ke, int& split) {
+    const int b = blockIdx.x;
+    split = -1;
+    if (round < rounds) {
+      tile = b + round++ * s.grid, kb = 0, ke = s.steps;
+      return true;
+    }
+    if (round++ > rounds || b >= rem * s.chunks) return false;
+    const int q = b / rem, j = b % rem;
+    tile = rounds * s.grid + j, kb = q * s.steps / s.chunks, ke = (q + 1) * s.steps / s.chunks;
+    if (s.chunks > 1) split = j;
+    return true;
+  }
+};
+
+// A WgSched the kernels can run: the tiles of M members, a grid that covers
+// the remainder's chunks, at most max_rem split tiles (their counts).
+inline bool sched_ok(const WgSched& s, int M, int max_rem) {
+  if (s.grid < 1 || s.grid > s.tiles || s.tiles != M * s.row_tiles * s.col_tiles || s.chunks < 1 ||
+      s.chunks > s.steps)
+    return false;
+  const int rem = s.tiles % s.grid;
+  return rem == 0 || (rem * s.chunks <= s.grid && (s.chunks == 1 || rem <= max_rem));
+}
+
+// named barrier ID over the first N threads of the block (the consumers)
+template <int ID, int N>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
 }
 
 }  // namespace hopper

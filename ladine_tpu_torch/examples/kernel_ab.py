@@ -1,6 +1,7 @@
-"""Time K3 (``flash_attention``) and K5b (``int8_eps_l34``) of two or more
-checkouts of the port on one card, in turns, so that a change to a kernel
-is compared with its parent on the same card in the same call.
+"""Time K3 (``flash_attention``), K4 (``int8_linear_softplus``), K5a
+(``int8_eps_l12``) and K5b (``int8_eps_l34``) of two or more checkouts of
+the port on one card, in turns, so that a change to a kernel is compared
+with its parent on the same card in the same call.
 
     python ladine_tpu_torch/examples/kernel_ab.py --roots PARENT . [--out FILE]
 
@@ -11,24 +12,28 @@ which builds that root's kernels from its sources, in the order of
 the same seeded inputs: K3 in bfloat16 and float32 on the strided slices of
 a fused qkv projection at the serving batch 8 (196 tokens), a training
 batch 30 (197 tokens; 12 heads of 64 and ConViT's 16 of 48) and the
-evidence batch 70 (197), and K5b at lin3 (5, R,
-4096) -> 4096 with lin4 N = 2 at R = 160 (batch 8) and 1400 (batch 70) on
-float32 and bfloat16 rows; device time by CUDA events over back-to-back
-calls behind a spin kernel, and each output's largest difference from the
-plain version. The card's name and power limit lead the output; the last
-line is the JSON record of every run.
+evidence batch 70 (197); K4 in both schemes (lin2 symmetric, lin3
+zero-point), K5a (lin1 at Ci = 4, then lin2) and K5b (lin3, then lin4 at
+N = 2) at (5, R, 4096) -> 4096 with R = 160 (batch 8) and 1400 (batch 70),
+on float32 and bfloat16 rows; device time by CUDA events over
+back-to-back calls behind a spin kernel, and each output's largest
+difference from the plain version. K4's and K5a's outputs (h and its row
+max) must be the same bits in every root: the script exits 1 where they
+differ. The card's name and power limit lead the output; the last line
+is the JSON record of every run.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
 import sys
 
 K3_SHAPES = ((8, 196, 12, 64), (30, 197, 12, 64), (30, 197, 16, 48), (70, 197, 12, 64))
-K5B_ROWS = (160, 1400)
+INT8_ROWS = (160, 1400)
 
 
 def _cuda_ms(torch, fn, iters: int, spin: int = 1_000_000) -> float:
@@ -42,6 +47,16 @@ def _cuda_ms(torch, fn, iters: int, spin: int = 1_000_000) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes: equal digests, equal bits."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def worker(root: str) -> dict:
@@ -58,7 +73,7 @@ def worker(root: str) -> dict:
     def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
         return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
 
-    out = {"root": root, "package": os.path.dirname(K.__file__), "k3": {}, "k5b": {}}
+    out = {"root": root, "package": os.path.dirname(K.__file__), "k3": {}, "k4": {}, "k5a": {}, "k5b": {}}
     for b, n, h, d in K3_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = rnd(b, n, 3, h, d, lo=-2.0, hi=2.0, dtype=dtype)
@@ -70,14 +85,34 @@ def worker(root: str) -> dict:
     w_q, w_scale = Q.quantize_weight(rnd(m, k_, n_, lo=-k_**-0.5, hi=k_**-0.5))
     colsum = w_q.sum(dim=1, dtype=torch.int32).float()
     s, c3 = (w_scale * rnd(m, n_, lo=0.5, hi=1.5)).contiguous(), rnd(m, n_, lo=-0.5, hi=0.5)
-    for r in K5B_ROWS:
+    a1, c1 = rnd(m, k_, lo=0.5, hi=1.5), rnd(m, k_, lo=-0.5, hi=0.5)
+    for r in INT8_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
+            rows = f"R={r} {str(dtype)[6:]} rows"
+            for scheme, lo, cs in (("symmetric", -2.0, None), ("zero-point", 0.0, colsum)):
+                x = rnd(m, r, k_, lo=lo, hi=2.0, dtype=dtype)
+                xf = x.float()
+                xmax = (xf.amax(-1, keepdim=True) if cs is not None else xf.abs().amax(-1, keepdim=True)).contiguous()
+                args = (x, xmax, w_q, s, c3, cs)
+                got = K.int8_linear_softplus(*args)
+                err = max((g_.float() - p_.float()).abs().max().item()
+                          for g_, p_ in zip(got, K.int8_linear_softplus_plain(*args)))
+                out["k4"][f"{rows} {scheme}"] = dict(
+                    ms=_cuda_ms(torch, lambda: K.int8_linear_softplus(*args), 50), max_abs_err=err,
+                    digest=_digest(got))
+            f = rnd(m, r, k_, dtype=dtype)
+            args = (f, rnd(m, r, 4, lo=0.0, hi=1.0, dtype=dtype), rnd(m, 4, k_, lo=-0.5, hi=0.5, dtype=dtype),
+                    a1, c1, w_q, s, c3)
+            got = K.int8_eps_l12(*args)
+            err = max((g_.float() - p_.float()).abs().max().item() for g_, p_ in zip(got, K.int8_eps_l12_plain(*args)))
+            out["k5a"][rows] = dict(ms=_cuda_ms(torch, lambda: K.int8_eps_l12(*args), 50), max_abs_err=err,
+                                    digest=_digest(got))
             h2 = rnd(m, r, k_, lo=0.0, hi=2.0, dtype=dtype)
             args = (h2, h2.float().amax(-1, keepdim=True).contiguous(), w_q, s, c3, colsum,
                     rnd(m, n_, c, lo=-n_**-0.5, hi=n_**-0.5, dtype=dtype))
             first = K.int8_eps_l34(*args)
             err = (first - K.int8_eps_l34_plain(*args)).abs().max()
-            out["k5b"][f"R={r} {str(dtype)[6:]} rows"] = dict(
+            out["k5b"][rows] = dict(
                 ms=_cuda_ms(torch, lambda: K.int8_eps_l34(*args), 50), max_abs_err=float(err),
                 repeats_bit_for_bit=bool(torch.equal(first, K.int8_eps_l34(*args))))
     return out
@@ -108,17 +143,21 @@ def main(argv=None) -> int:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        for kind in ("k3", "k5b"):
+        for kind in ("k3", "k4", "k5a", "k5b"):
             for key, rec in runs[-1][kind].items():
                 print(f"{root}: {kind} {key}: {rec['ms']:.4f} ms, max_abs_err {rec['max_abs_err']:.3e}"
                       + (f", repeats bit for bit: {rec['repeats_bit_for_bit']}" if kind == "k5b" else ""))
-    record = {"card": card, "runs": runs}
+    # K4 and K5a store h from exact int32 sums with the same arithmetic: every root the same bits
+    differ = sorted({f"{kind} {key}" for run in runs for kind in ("k4", "k5a") for key, rec in run[kind].items()
+                     if rec["digest"] != runs[0][kind][key]["digest"]})
+    print("K4 and K5a outputs equal bit for bit in every root" if not differ else f"outputs DIFFER: {differ}")
+    record = {"card": card, "runs": runs, "k4_k5a_bit_equal": not differ}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
     print(json.dumps(record))
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

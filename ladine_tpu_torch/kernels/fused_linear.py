@@ -83,9 +83,11 @@ class WgmmaPlan(NamedTuple):
         return self.tiles * self.steps / (self.grid * longest)
 
 
-def wgmma_plan(m: int, r: int, k: int, n: int) -> WgmmaPlan:
+def wgmma_plan(m: int, r: int, k: int, n: int, step_k: int = STEP_K) -> WgmmaPlan:
     """The wgmma body's schedule for M members of an (R, K) x (K, N)
-    product: a pure function of the shape. Whole tiles run in rounds of at
+    product: a pure function of the shape, K in steps of ``step_k`` (the
+    int8 GEMM's plan, ``kernels/int8_linear.py::gemm_plan``, is this one at
+    its own step; its partial tiles are int32, of the same size). Whole tiles run in rounds of at
     most SMS blocks, the blocks of one weight strip's row tiles (row tile
     fastest) side by side, so they share the strip in L2. The remainder
     round splits its tiles in K over as many of the grid's blocks as it can
@@ -93,7 +95,7 @@ def wgmma_plan(m: int, r: int, k: int, n: int) -> WgmmaPlan:
     each weight strip still leaves device memory once. The last block to
     finish a split tile sums it: no block waits for another."""
     row_tiles, col_tiles = -(-r // TILE_ROWS), -(-n // TILE_COLS)
-    steps, tiles = -(-k // STEP_K), m * row_tiles * col_tiles
+    steps, tiles = -(-k // step_k), m * row_tiles * col_tiles
     grid = min(SMS, tiles)
     rem = tiles % grid
     chunks = min(grid // rem, steps) if rem else 1

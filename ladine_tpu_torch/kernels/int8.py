@@ -12,7 +12,7 @@ package leaves it to XLA; the hand-written kernels of the reverse chain are
 
 Every int8 weight here is a ``(..., K, N)`` tensor stored K-contiguous (its
 transpose is contiguous): the layout cuBLAS's int8 GEMM and the kernels'
-``mma.sync`` read. Quantization goes member by member and in row chunks, so
+s8 ``wgmma`` read. Quantization goes member by member and in row chunks, so
 no float copy of a whole stacked weight is ever made, and it never writes to
 the model: the float weights stay as they are.
 """

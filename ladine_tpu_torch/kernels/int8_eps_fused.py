@@ -34,6 +34,8 @@ from ladine_tpu_torch.kernels.int8_linear import (
     gemm_plan,
     int8_linear_softplus_plain,
     same_device,
+    schedule,
+    split_workspace,
 )
 
 _NAME = "int8_eps_fused"
@@ -44,12 +46,13 @@ _LIN1_MAX_K = 16 * 512  # 16 k a thread, one row a block of at most 512 threads
 
 
 def l34_workspace_bytes(m: int, r: int, n: int, c: int) -> Tuple[int, int]:
-    """K5b's workspace for M members of R rows, lin3's N and lin4's C:
-    (bytes of the counts, all bytes). A count (int32) a (member, row tile),
-    padded to 16 bytes, then an (R, C) float32 slot a (member, column tile)
-    of lin3's :func:`gemm_plan` (``lin4_flag_bytes`` in
+    """K5b's lin4 workspace for M members of R rows, lin3's N and lin4's
+    C: (bytes of the counts, all bytes). A count (int32) a (member, row
+    tile), padded to 16 bytes, then an (R, C) float32 slot a (member,
+    column tile) of lin3's :func:`gemm_plan` (``lin4_flag_bytes`` in
     ``csrc/int8_gemm.cuh``). The counts must be zero at the launch; the
-    kernel leaves them zero."""
+    kernel leaves them zero. (The plan's split tiles have a workspace of
+    their own, ``work_bytes``.)"""
     p = gemm_plan(m, r, 16, n)
     flags = -(-4 * m * p.row_tiles // 16) * 16
     return flags, flags + 4 * m * p.col_tiles * r * c
@@ -209,14 +212,15 @@ def _l12_launch(f, y_in, w1, a1, c1, w_q2, s2, c2):
         return h2, hmax2
     xq = torch.empty((m, r, k), dtype=torch.int8, device=f.device)
     xmax = torch.empty((m, r), dtype=torch.float32, device=f.device)
-    plan = gemm_plan(m, r, k, n)
-    launch = _lib("int8_eps_l12_launch", 12, 9)
+    p = gemm_plan(m, r, k, n)
+    work = split_workspace(p, f.device)
+    launch = _lib("int8_eps_l12_launch", 13, 13)
     with torch.cuda.device(f.device):
         err = launch(
             f.data_ptr(), y_in.data_ptr(), w1.data_ptr(), a1.data_ptr(), c1.data_ptr(),
             xq.data_ptr(), xmax.data_ptr(), w_q2.data_ptr(), s2.data_ptr(), c2.data_ptr(),
-            h2.data_ptr(), hmax2.data_ptr(), m, r, k, ci, n, threads, plan.row_tiles, plan.col_tiles,
-            int(f.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            h2.data_ptr(), hmax2.data_ptr(), None if work is None else work.data_ptr(), m, r, k, ci, n,
+            threads, *schedule(p), int(f.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, _NAME, L12)
     _build.launch_counts[L12] += 1
@@ -251,17 +255,18 @@ def _l34_launch(h2, hmax2, w_q3, s3, c3, colsum3, w4):
     if out.numel() == 0:
         return out
     xq = torch.empty((m, r, k), dtype=torch.int8, device=h2.device)
-    plan = gemm_plan(m, r, k, n)
-    flag_bytes, work_bytes = l34_workspace_bytes(m, r, n, n_out)
-    work = torch.empty(work_bytes, dtype=torch.uint8, device=h2.device)
-    work[:flag_bytes].zero_()
-    launch = _lib("int8_eps_l34_launch", 10, 8)
+    p = gemm_plan(m, r, k, n)
+    work = split_workspace(p, h2.device)
+    flag_bytes, lin4_bytes = l34_workspace_bytes(m, r, n, n_out)
+    lin4_work = torch.empty(lin4_bytes, dtype=torch.uint8, device=h2.device)
+    lin4_work[:flag_bytes].zero_()
+    launch = _lib("int8_eps_l34_launch", 11, 12)
     with torch.cuda.device(h2.device):
         err = launch(
             h2.data_ptr(), hmax2.data_ptr(), xq.data_ptr(), w_q3.data_ptr(), s3.data_ptr(),
-            c3.data_ptr(), colsum3.data_ptr(), w4.data_ptr(), out.data_ptr(), work.data_ptr(), m, r, k, n,
-            n_out, plan.row_tiles, plan.col_tiles, int(h2.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            c3.data_ptr(), colsum3.data_ptr(), w4.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), lin4_work.data_ptr(), m, r, k, n, n_out, *schedule(p),
+            int(h2.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, _NAME, L34)
     _build.launch_counts[L34] += 1

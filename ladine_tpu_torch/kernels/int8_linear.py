@@ -8,19 +8,22 @@ for all members (``csrc/int8_linear.cu``).
 
 A CPU tensor goes through :func:`int8_linear_softplus_plain`; a CUDA tensor
 goes through the kernel, or the wrapper raises. Both are implementations of
-one custom op (``kernels/_build.py``). Which tiles a launch of
-the GEMM covers, and which K steps each block of a cluster sums, is
-:func:`gemm_plan`, a pure function of the shape.
+one custom op (``kernels/_build.py``). The GEMM (``csrc/int8_gemm.cuh``) is
+a TMA ring feeding s8 ``wgmma`` on a persistent grid; its schedule is
+:func:`gemm_plan`, a pure function of the shape. It takes every shape the
+wrappers take: K a positive multiple of 16 and 16-byte aligned operands
+(TMA's tensor maps); anything else raises before a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ladine_tpu_torch.kernels import _build
+from ladine_tpu_torch.kernels import _build, fused_linear
+from ladine_tpu_torch.kernels.fused_linear import WgmmaPlan
 from ladine_tpu_torch.kernels.int8 import (
     Int8Layers,
     _folded,
@@ -35,30 +38,28 @@ from ladine_tpu_torch.kernels.int8 import (
 
 _NAME = "int8_linear"
 _KERNEL = "int8_linear_softplus"
-TILE_ROWS, TILE_COLS, STEP_K = 160, 128, 64  # BM, BN, BK of csrc/int8_gemm.cuh
-CLUSTER = 4  # blocks of a cluster that split the K steps of one tile (CLUSTER there)
+BODY = "wgmma"  # the GEMM's one body: TMA + s8 wgmma (csrc/int8_gemm.cuh)
+TILE_ROWS, TILE_COLS = fused_linear.TILE_ROWS, fused_linear.TILE_COLS  # BM, BN of csrc/int8_gemm.cuh: 192 x 128
+STEP_K = 128  # bytes of K a step (BK there): one TMA box of the 128-byte swizzle, four k32 products
+SLABS = TILE_ROWS // 64  # consumer warpgroups of a block, one 64-row slab each
 
 
-class GemmPlan(NamedTuple):
-    """A launch of the int8 GEMM (``csrc/int8_gemm.cuh``): row x column
-    tiles of TILE_ROWS x TILE_COLS per member, each computed by a cluster
-    of CLUSTER blocks; rank q sums the STEP_K-byte steps q, q + CLUSTER,
-    ... of K, ``steps[q]`` of them."""
+def gemm_plan(m: int, r: int, k: int, n: int) -> WgmmaPlan:
+    """The int8 GEMM's schedule for M members of an (R, K) x (K, N)
+    product: K1's persistent schedule (``fused_linear.wgmma_plan``) at
+    STEP_K bytes of K a step. Tiles of TILE_ROWS x TILE_COLS of one member,
+    row tile fastest, run whole on min(132, tiles) blocks a round at a time;
+    the remainder tiles are split in K into ``chunks`` equal parts, and the
+    last of a split tile's blocks adds the int32 partials (``work_bytes``:
+    their workspace, 0 where none is split) and runs the epilogue."""
+    return fused_linear.wgmma_plan(m, r, k, n, step_k=STEP_K)
 
-    row_tiles: int
-    col_tiles: int
-    steps: Tuple[int, ...]
-    blocks: int
 
-
-def gemm_plan(m: int, r: int, k: int, n: int) -> GemmPlan:
-    """The GEMM's launch for M members of an (R, K) x (K, N) product. A
-    short K can leave the last ranks no step (their partial sums are then
-    zeros)."""
-    n_steps = -(-k // STEP_K)
-    steps = tuple(max(0, -(-(n_steps - q) // CLUSTER)) for q in range(CLUSTER))
-    row_tiles, col_tiles = -(-r // TILE_ROWS), -(-n // TILE_COLS)
-    return GemmPlan(row_tiles, col_tiles, steps, CLUSTER * row_tiles * col_tiles * m)
+def live_slabs(r: int, row0: int) -> int:
+    """64-row slabs of the tile at ``row0`` with a row below R: the slabs
+    the producer loads and the consumers multiply (rows past R inside a
+    live slab arrive as zeros; a slab wholly past R is skipped)."""
+    return min(SLABS, -(-(r - row0) // 64))
 
 
 def int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,7 +80,7 @@ def _lib():
     lib = _build.load(_NAME)
     fn = lib.int8_linear_softplus_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,15 +93,15 @@ def check_activations(kernel: str, x: torch.Tensor, rows_max: Optional[torch.Ten
     if x.dim() != 3:
         raise ValueError(f"{kernel}: activations must be (M, R, K), got {tuple(x.shape)}")
     m, r, k = x.shape
-    if k % 16 != 0:
-        raise ValueError(f"{kernel}: K = {k} must be a multiple of 16 (16-byte int8 copies)")
+    if k % 16 != 0 or k == 0:
+        raise ValueError(f"{kernel}: K = {k} must be a positive multiple of 16 (16-byte int8 rows for TMA)")
     if not x.is_contiguous() or x.data_ptr() % 16 != 0:
         raise ValueError(f"{kernel}: activations must be contiguous and 16-byte aligned")
     if rows_max is not None:
         if rows_max.dtype != torch.float32 or rows_max.shape != (m, r, 1) or not rows_max.is_contiguous():
             raise ValueError(f"{kernel}: the row max must be contiguous float32 (M, R, 1) = {(m, r, 1)}")
     if m > 65535:
-        raise ValueError(f"{kernel}: too many members for the grid")
+        raise ValueError(f"{kernel}: too many members for the lin1 pass's grid")
     return m, r, k
 
 
@@ -114,8 +115,8 @@ def check_weight(kernel: str, w_q, m: int, k: int, *per_column) -> int:
     n = w_q.shape[2]
     if w_q.stride() != (n * k, 1, k):
         raise ValueError(f"{kernel}: the weight must be stored K-contiguous, as quantize_weight makes it")
-    if (n + TILE_COLS - 1) // TILE_COLS > 65535:
-        raise ValueError(f"{kernel}: too many columns for the grid")
+    if w_q.data_ptr() % 16 != 0:
+        raise ValueError(f"{kernel}: the weight must be 16-byte aligned (its TMA tensor map)")
     for v in per_column:
         if v is None:
             continue
@@ -124,6 +125,17 @@ def check_weight(kernel: str, w_q, m: int, k: int, *per_column) -> int:
         if tuple(v.shape) != (m, n) or not v.is_contiguous():
             raise ValueError(f"{kernel}: per-column vectors must be contiguous (M, N) = {(m, n)}")
     return n
+
+
+def schedule(p: WgmmaPlan) -> Tuple[int, ...]:
+    """The plan's six ints as the C entries take them (``hopper::WgSched``)."""
+    return p.row_tiles, p.col_tiles, p.steps, p.tiles, p.grid, p.chunks
+
+
+def split_workspace(p: WgmmaPlan, device) -> Optional[torch.Tensor]:
+    """The split tiles' workspace of a launch (its counts are zeroed by the
+    launch), or None where no tile is split."""
+    return torch.empty(p.work_bytes, dtype=torch.uint8, device=device) if p.work_bytes else None
 
 
 def same_device(kernel: str, *tensors) -> None:
@@ -170,13 +182,14 @@ def _launch(x, xmax, w_q, s, c, colsum):
     if h.numel() == 0:
         return h, hmax
     xq = torch.empty((m, r, k), dtype=torch.int8, device=x.device)
-    plan = gemm_plan(m, r, k, n)
+    p = gemm_plan(m, r, k, n)
+    work = split_workspace(p, x.device)
     launch = _lib()
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), xmax.data_ptr(), xq.data_ptr(), w_q.data_ptr(), s.data_ptr(),
             c.data_ptr(), None if colsum is None else colsum.data_ptr(), h.data_ptr(),
-            hmax.data_ptr(), m, r, k, n, plan.row_tiles, plan.col_tiles,
+            hmax.data_ptr(), None if work is None else work.data_ptr(), m, r, k, n, *schedule(p),
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, _NAME, _KERNEL)

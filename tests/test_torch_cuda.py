@@ -290,7 +290,8 @@ def test_fused_linear_act_takes_a_float32_gate_above_k_16(cuda, shape, k):
     _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
 
 
-INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136)]
+INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136),
+               (5, 161, 4096, 4096), (5, 1400, 4096, 4096)]
 
 
 def _close(out, ref, tol):
@@ -403,7 +404,7 @@ def test_int8_lin1_pass_raises_on_a_k_it_does_not_take(cuda):
 
 
 GEMM_SHAPES = [(2, r, 4096, 4096) for r in (1, 20, 160, 161, 1400)] + [
-    (2, 20, 80, 200), (1, 161, 272, 136), (2, 23, 64, 136)]  # ragged N and K: ranks with no step
+    (2, 20, 80, 200), (1, 161, 272, 136), (2, 23, 64, 136)]  # ragged N and K: K ends inside a 128-byte step
 
 
 
@@ -417,8 +418,8 @@ def _within_one_bf16_ulp(out, ref):
 @pytest.mark.parametrize("zp", [False, True], ids=["symmetric", "zero-point"])
 @pytest.mark.parametrize("shape", GEMM_SHAPES, ids=str)
 def test_int8_gemm_through_k4_at_any_row_count_and_ragged_k_n(cuda, shape, zp):
-    """The GEMM through K4 in bf16: below, at and past one 160-row tile, and
-    a ragged N and K, where some ranks of a cluster have no K step
+    """The GEMM through K4 in bf16: one live slab, one row tile, split
+    remainder tiles, and a ragged N and K, where K ends inside a step
     (kernels/int8_linear.py::gemm_plan)."""
     x, xmax, w_q, s, c, colsum, _, _ = int8_layer_inputs(np.random.default_rng(15), *shape, cuda,
                                                          torch.bfloat16, zp)
@@ -937,3 +938,95 @@ def test_int8_eps_l34_full_width_is_bit_reproducible(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, first)
+
+
+REPEAT_SHAPES = [(5, 160, 4096, 4096), (5, 1400, 4096, 4096), (2, 23, 96, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REPEAT_SHAPES, ids=str)
+def test_int8_store_kernels_repeat_bit_for_bit(cuda, shape, dtype):
+    """K4 (both schemes) and K5a: the int32 sums are exact whatever the
+    split (kernels/int8_linear.py::gemm_plan), the epilogue is element for
+    element, and the row max an order-free atomicMax: a second launch gives
+    the same h and hmax, bit for bit."""
+    m, r, k, n = shape
+    rng = np.random.default_rng(41)
+    for zp in (False, True):
+        x, xmax, w_q, s, c, colsum, y_in, w1 = int8_layer_inputs(rng, m, r, k, n, cuda, dtype, zp)
+        first = int8_linear_softplus(x, xmax, w_q, s, c, colsum)
+        again = int8_linear_softplus(x, xmax, w_q, s, c, colsum)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    f, _, w_q2, s2, c2, _, y_in, w1 = int8_layer_inputs(rng, m, r, k, k, cuda, dtype, False)
+    a1, c1 = (torch.from_numpy(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32)).to(cuda) for _ in range(2))
+    launch_counts.clear()
+    first = int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    again = int8_eps_l12(f, y_in, w1, a1, c1, w_q2, s2, c2)
+    torch.cuda.synchronize()
+    assert launch_counts["int8_eps_fused_l12"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REPEAT_SHAPES, ids=str)
+def test_int8_eps_l34_repeats_and_replays_bit_for_bit(cuda, shape, dtype):
+    """K5b: a second launch and a CUDA-graph replay give the same bits as
+    the eager launch (rtol 0): the column tiles' lin4 sums meet in a fixed
+    order at every split of the schedule, and the counts reset."""
+    m, r, k, n = shape
+    rng = np.random.default_rng(42)
+    h2, hmax2, w_q3, s3, c3, cs3, _, _ = int8_layer_inputs(rng, m, r, k, n, cuda, dtype, True)
+    w4 = torch.from_numpy(rng.standard_normal((m, n, 2)).astype(np.float32) * n**-0.5).to(cuda, dtype)
+    args = (h2, hmax2, w_q3, s3, c3, cs3, w4)
+    first = int8_eps_l34(*args)
+    _close(first, int8_eps_l34_plain(*args), 1e-4 if dtype == torch.float32 else 1e-2)
+    assert torch.equal(first, int8_eps_l34(*args))
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = int8_eps_l34(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, first, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [16, 1, 8])
+def test_int8_gemm_takes_the_body_the_plan_names_at_any_weight_base(cuda, offset):
+    """A weight whose base is 16-byte aligned but not at its storage's start
+    runs the one body (TMA + s8 wgmma) and equals the plain version; a
+    base off 16 bytes is refused by every int8 wrapper before any launch
+    (kernels/int8_linear.py::check_weight), nothing falls back."""
+    from ladine_tpu_torch.kernels import int8_linear as k4
+
+    m, r, k, n = 2, 37, 4096, 256
+    rng = np.random.default_rng(43)
+    x, xmax, w_q, s, c, colsum, y_in, w1 = int8_layer_inputs(rng, m, r, k, n, cuda, torch.bfloat16, True)
+    storage = torch.zeros(offset + w_q.numel() + 16, dtype=torch.int8, device=cuda)
+    start = (16 - storage.data_ptr() % 16) % 16 + offset
+    moved = storage[start:start + w_q.numel()].view(m, n, k).transpose(1, 2)
+    moved.copy_(w_q)
+    assert moved.stride() == w_q.stride() and moved.data_ptr() % 16 == offset % 16
+    a1, c1 = (torch.from_numpy(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32)).to(cuda) for _ in range(2))
+    w4 = torch.zeros(m, n, 2, dtype=torch.bfloat16, device=cuda)
+    launch_counts.clear()
+    if offset % 16 == 0:
+        assert k4.BODY == "wgmma" and k4.gemm_plan(m, r, k, n).grid == 4
+        h, hmax = int8_linear_softplus(x, xmax, moved, s, c, colsum)
+        torch.cuda.synchronize()
+        assert launch_counts["int8_linear_softplus"] == 1
+        ref_h, ref_m = int8_linear_softplus_plain(x, xmax, w_q, s, c, colsum)
+        _within_one_bf16_ulp(h, ref_h)
+        assert all(torch.equal(a, b) for a, b in zip((h, hmax), int8_linear_softplus(x, xmax, w_q, s, c, colsum)))
+        return
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_linear_softplus(x, xmax, moved, s, c, colsum)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_eps_l12(x, y_in, w1, a1, c1, moved, s, c)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_eps_l34(x, xmax, moved, s, c, colsum, w4)
+    assert sum(launch_counts.values()) == 0
+
