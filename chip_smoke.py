@@ -23,7 +23,12 @@ Phases, each fatal on failure (no failure is caught):
    1400 rows a member, each row beside ``torch.bmm`` on the same shapes as
    a GEMM-only yardstick (``cublas_gemm_ms``, never called by the port),
    with its body and its schedule (``fused_linear.wgmma_plan``: blocks,
-   waves, the split remainder's chunks, the busy share).
+   waves, the split remainder's chunks, the busy share). K1's float32
+   lin2/lin3 (its ``tf32x3`` body: three TF32 products on the tensor cores)
+   is a sub-record at 20, 160 and 1400 rows a member, each held at 1e-4,
+   with its plan, its plain time, its bound at the rate of its three TF32
+   products and, beside it, at the fp32 FMA rate, and ``torch.bmm`` in
+   float32 with both TF32 flags off as the yardstick.
    The int8 kernels (K4 int8_linear_softplus in both schemes, K5a/K5b
    int8_eps_fused_l12/_l34) print their GEMM's body (TMA + s8 ``wgmma``)
    and schedule (``int8_linear.gemm_plan``: blocks, waves, the split
@@ -54,7 +59,10 @@ Phases, each fatal on failure (no failure is caught):
    eager and the graphed request at each int8 operating point ``serving``,
    ``fast``, ``serving`` + ``use_int8_pallas`` (K4, 100 launches) and +
    ``pallas_fuse_ends`` (K5a and K5b, 50 each), each with the same checks,
-   exact launch counts, its stages, peak memory and traces.
+   exact launch counts, its stages, peak memory and traces. Last, a float32
+   ``parity`` request (the config default dtype) on float32 copies of the
+   members behind the same guidance: eager against graphed at rtol 0,
+   K1 3000 launches (lin2/lin3 on ``tf32x3``), its times and traces.
 5. The artifact and batching surface at full width, on the phase-4 modules:
    reference-layout state dicts exported from them and read back into fresh
    modules (``utils/torch_convert.py``), every tensor bit-equal; one parity
@@ -262,6 +270,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores
 INT8_OP_PER_S = 1979e12  # dense int8 tensor cores
 FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores: K1's float32 body runs three TF32 products
 BATCH, REQUESTS = 8, 3
 PARITY_SEED = 1234  # the generator of phase 4's first parity request, and of phase 5's
 ARTIFACT_DIR = "_smoke_artifact"  # phase 5's Predictor.save, beside this script (gitignored)
@@ -389,12 +398,13 @@ def check_kernels():
         print(f"    R={r_}: body={body} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) torch.bmm (cuBLAS, GEMM only) "
               f"{bmm_ms:.4f}; plan: {p.tiles} tiles on {p.grid} blocks, {p.waves} wave(s), the last "
               f"{p.tiles % p.grid or p.grid} tiles in {p.chunks} K-chunk(s), busy {p.busy:.4f}")
+    fp32_rows = float32_k1_rows(errs)
     # the lin2/lin3 shape carries nearly all of the path's work; lin1 rides as a sub-record
     entries.append(dict(
         name="fused_linear_act", route="cuda", source="ladine_tpu_torch/csrc/fused_linear.cu",
         replaces="ladine_tpu/kernels/fused_linear.py:66", library_ms=None,
         cublas_gemm_ms=rows[str(R)]["bmm_ms"], **k1["lin2/lin3"], gate_ms=k1["lin2 + gate"]["ms"],
-        rows=rows, lin1=k1["lin1"]))
+        rows=rows, lin1=k1["lin1"], fp32=fp32_rows))
     entries[-1]["max_abs_err"] = max(errs)
 
     # K3 on the strided q/k/v slices of a fused qkv projection: the serving
@@ -432,6 +442,56 @@ def check_kernels():
         **{key: serving[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         body=serving["route"], shapes=k3, backward=check_attention_backward(g)))
     return entries
+
+
+def float32_k1_rows(errs):
+    """Phase 2: K1's float32 lin2/lin3 (the tf32x3 body) at 20, 160 and 1400
+    rows a member (batch 1, 8 and the evidence batch 70; the float32
+    predictor is the config default): each against its plain version at
+    1e-4 (appended to ``errs``), its plan (``fused_linear.wgmma_plan`` at
+    ``TF32_STEP_K``), time, plain time, bound at the rate of its three TF32
+    products and, beside it, at the fp32 FMA rate, and ``torch.bmm`` in
+    float32 with both TF32 flags off (a GEMM-only yardstick never called by
+    the port). Returns the records by row count."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.device import resolve_device
+    from ladine_tpu_torch.kernels import fused_linear
+
+    resolve_device("cuda")  # the port's float32 stays float32: both TF32 flags off
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    m, f_ = 5, 4096
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g)
+
+    w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5)
+    a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
+    rows = {}
+    for r in (20, 20 * BATCH, 1400):
+        x = rnd(m, r, f_, lo=0.0, hi=2.0)
+        args = (x, w, a, c, None)
+        body = fused_linear.plan(torch.float32, f_, f_, True)[0]
+        p = fused_linear.wgmma_plan(m, r, f_, f_, fused_linear.TF32_STEP_K)
+        out = K.fused_linear_act(*args)
+        torch.cuda.synchronize()
+        errs.append(compare(f"fused_linear_act fp32 lin2/lin3 at R={r} body={body}", out,
+                            K.fused_linear_act_plain(*args), 1e-4))
+        flop = 2 * m * r * f_ * f_
+        rec = dict(body=body, ms=cuda_ms(lambda: K.fused_linear_act(*args), 20),
+                   plain_ms=cuda_ms(lambda: K.fused_linear_act_plain(*args), 5),
+                   bmm_ms=cuda_ms(lambda: torch.bmm(x, w), 20), max_abs_err=errs[-1], grid=p.grid, tiles=p.tiles,
+                   chunks=p.chunks, waves=p.waves, busy=p.busy)
+        rec["bound_ms"], rec["bound_by"] = bound((*args, out), (3 * flop, TF32_FLOP_PER_S))
+        rec["fma_bound_ms"] = bound((*args, out), (flop, FP32_FLOP_PER_S))[0]
+        rows[str(r)] = rec
+        print(f"    R={r}: body={body} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}; 3 TF32 products) fp32 FMA bound {rec['fma_bound_ms']:.4f} torch.bmm fp32 (TF32 off, "
+              f"GEMM only) {rec['bmm_ms']:.4f}; plan: {p.tiles} tiles on {p.grid} blocks, {p.waves} wave(s), the last "
+              f"{p.tiles % p.grid or p.grid} tiles in {p.chunks} K-chunk(s), busy {p.busy:.4f}")
+    print(f"  K1 float32 rows in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # K3's shapes in phase 2: (B, N, H, D)
@@ -762,8 +822,30 @@ def run_full_width():
     for name, (_, _, path_kernels) in INT8_REQUESTS.items():
         counts = serve_int8(guidance, model, sched, batches[0], name)
         launches.update({k: counts[k] for k in path_kernels})
+    serve_float32(guidance, model, sched, batches[0])
     return launches, dict(guidance=guidance, model=model, sched=sched, images=batches[0],
                           parity_out=parity_out)
+
+
+def serve_float32(guidance, model, sched, images):
+    """Phase 4: a float32 ``parity`` request of batch 8 (float32 is the
+    config default) on float32 copies of the phase-4 members behind the
+    same guidance: eager against graphed at rtol 0 and exactly 3000 K1
+    launches (lin2/lin3 on the tf32x3 body), with both times and traces
+    (``eager_vs_graph``; ``REQUEST_MS["float32 parity"]``)."""
+    import ladine_tpu_torch as L
+
+    t0 = time.perf_counter()
+    members = L.ConditionalModel(5, device="cuda", dtype=torch.float32)
+    members.load_state_dict(model.state_dict())
+    pred = L.Predictor.from_preset("parity", guidance=guidance, model=members, sched=sched, mc_trials=20)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    eager_vs_graph(pred, images, "float32 parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    del pred, members
+    torch.cuda.empty_cache()
+    print(f"  float32 parity: members copied in {copy_s:.1f} s; the request's steps in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def generator(seed: int) -> torch.Generator:
@@ -789,6 +871,9 @@ def spread(a, b) -> str:
     return ", ".join(f"{k} {np.abs(a[k] - b[k]).max():.2e} / "
                      f"{(np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1e-6)).max():.2e}"
                      for k in ("probs", "piw", "mc_variance"))
+
+
+REQUEST_MS = {}  # eager_vs_graph's times by request label
 
 
 def eager_vs_graph(pred, images, label, want):
@@ -817,6 +902,7 @@ def eager_vs_graph(pred, images, label, want):
     graph_ms = (time.perf_counter() - t0) * 1e3
     graph_counts = {k: K.launch_counts[k] - before[k] for k in KERNELS}
     equal = same_outputs(graphed, eager)
+    REQUEST_MS[label] = dict(eager_ms=eager_ms, graph_ms=graph_ms, capture_s=capture_s)
     print(f"  {label} request, batch {BATCH}: eager {eager_ms:.1f} ms, graph {graph_ms:.1f} ms "
           f"({BATCH / graph_ms * 1e3:.2f} img/s); first call {first_ms:.1f} ms of which warm-up and capture "
           f"{capture_s:.2f} s; outputs {'equal' if equal else 'DIFFER'} (exactly); launches eager {eager_counts}, "
@@ -2816,9 +2902,10 @@ def check_phase12_shapes(entries):
         h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
         w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=dtype)
         args2 = (h, w, a, c, None)
+        flop = 2 * m * r * f_ * f_  # float32: the tf32x3 body's three TF32 products
         held("fused_linear_act", f"lin2/lin3 {tuple(h.shape)}x{tuple(w.shape)} {str(dtype)[6:]}",
              lambda: K.fused_linear_act(*args2), lambda: K.fused_linear_act_plain(*args2), args2[:4],
-             [(2 * m * r * f_ * f_, rate[dtype])], tol)
+             [(flop, BF16_FLOP_PER_S) if dtype == bf16 else (3 * flop, TF32_FLOP_PER_S)], tol)
     b, h_, d = 64, DIGITS_HEADS, 48 // DIGITS_HEADS
     for n in (16, 17):  # the taps' bare patches; the classifier's patches and cls token
         for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
@@ -3097,9 +3184,10 @@ def check_phase13_shapes(entries):
         h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
         w = rnd(m, f_, f_, lo=-f_**-0.5, hi=f_**-0.5, dtype=dtype)
         args2 = (h, w, a, c, None)
+        flop = 2 * m * r * f_ * f_  # float32: the tf32x3 body's three TF32 products
         held("fused_linear_act", f"lin2/lin3 {tuple(h.shape)}x{tuple(w.shape)} {str(dtype)[6:]}",
              lambda: K.fused_linear_act(*args2), lambda: K.fused_linear_act_plain(*args2), args2[:4],
-             [(2 * m * r * f_ * f_, rate[dtype])], tol)
+             [(flop, BF16_FLOP_PER_S) if dtype == bf16 else (3 * flop, TF32_FLOP_PER_S)], tol)
     b, h_, d = 70, 12, 64
     for n in (196, 197):  # the taps' bare patches; the classifier's patches and cls token
         for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
@@ -3250,6 +3338,7 @@ def main() -> int:
         if 0 in (e["launches"], e["eval_launches"], e["train_launches"], e["cli_launches"], e["phase10_launches"],
                  e["phase11_launches"], e["phase12_launches"], e["phase13_launches"]):
             raise AssertionError(f"{e['name']} was never launched on the main path")
+    entries[0]["float32_parity_request"] = REQUEST_MS["float32 parity"]
     print(f"  all phases in {time.perf_counter() - start:.0f} s")
 
     print(json.dumps({"kernels": entries}))

@@ -8,7 +8,7 @@
 // (bodies _kernel and _kernel_mult). It is the eps layer of every reverse
 // diffusion step: lin1 (K = 2C = 4, with the f gate as mult), lin2 and lin3
 // (K = N = 4096), 3 launches a step. The member axis is in the grid: one
-// launch covers all members. Four bodies, chosen by the wrapper from the
+// launch covers all members. Five bodies, chosen by the wrapper from the
 // shape and dtype (kernels/fused_linear.py::plan):
 //
 // small_k (K <= 16, both dtypes; lin1 up to 8 classes). An outer product and an elementwise
@@ -90,9 +90,44 @@
 // them). Ragged R, N and K are zero-filled; its tiles are staged element
 // by element (the shapes that would move as 16-byte vectors take wgmma).
 //
-// simt (K > 16, fp32). 64 x 64 tiles of 128 threads, 8 x 4 fp32 FMA outputs
-// each, a 2-stage cp.async ring and the epilogue from a shared fp32 tile. It
-// serves the fp32 predictor, which has no tensor-core product to use.
+// tf32x3 (fp32 K > 1024, K and N multiples of 4, 16-byte aligned pointers:
+// the fp32 shapes a TMA tensor map describes above SIMT_MAX_K of
+// kernels/fused_linear.py; lin2 and lin3 of the float32 predictor, the
+// config default). fp32 has no tensor-core product of its
+// own; TF32 (495 TFLOP/s dense against 67 of fp32 FMA) keeps 10 mantissa
+// bits, which misses fp32's 1e-4 in one pass. So each value v is split
+// into hi = trunc(v) (its top 19 bits) and lo = v - hi rounded to TF32, and
+// the product is x_hi w_hi + x_hi w_lo + x_lo w_hi (the dropped x_lo w_lo
+// is ~2^-21 relative): three TF32 products, so at R = 1400 its operations
+// bound it at 1.424 ms (3 x 235 GFLOP), at R = 160 at 0.163 ms against
+// 0.108 ms of bytes. Its design:
+//  - The wgmma body's tiles, persistent schedule and split-tile sums
+//    (kernels/fused_linear.py::wgmma_plan at BK = 32: 128 bytes of fp32 K,
+//    a TMA box wide), its epilogue in registers (fp32 pairs stored).
+//  - TF32 wgmma takes both operands K-major. x is; w (K, N) row-major is
+//    not, and TMA does not transpose 32-bit data. So w arrives as four
+//    32-column MN-major boxes a stage in a ring of its own, and the producer
+//    warpgroup's three idle warps write it transposed as w_hi (w itself:
+//    the tensor cores read its top 19 bits) and w_lo into the stage, in the
+//    128-byte-swizzled K-major layout wgmma reads, without bank conflicts.
+//  - x as TMA loads it is x_hi to the tensor cores; each consumer
+//    warpgroup writes x_lo of its slab beside it. Every operand is read
+//    from shared memory: m64n128k8 wgmma, three a k8 step.
+//  - Rounding by integer operations: cvt.rna.tf32.f32 runs on the
+//    conversion pipe, and split w and x slower.
+//  - A stage's products go into a fresh fp32 tile, added to the
+//    accumulator with round-to-nearest: the tensor cores' own sums do not
+//    round to nearest, and over K / 8 x 3 sums into one accumulator they
+//    biased it past the plain fp32 product's error at K = 4096; folded, it
+//    errs less than the plain product against float64
+//    (examples/kernel_ab.py reports both).
+// It does not depend on torch's TF32 flags, which the port keeps off.
+//
+// simt (K > 16, fp32, the shapes tf32x3 does not take: K or N off 4, a
+// pointer off 16 bytes, K up to SIMT_MAX_K, where it measured faster).
+// 64 x 64 tiles of 128 threads, 8 x 4 fp32 FMA
+// outputs each, a 2-stage cp.async ring and the epilogue from a shared fp32
+// tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -408,7 +443,7 @@ int launch_mma(const void* x, const void* w, const void* a, const void* c, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- wgmma (bf16, TMA ring) -------------------------------------------------
+// ---- wgmma (bf16) and tf32x3 (fp32): TMA rings on a persistent grid ------
 
 namespace wg_cfg {
 constexpr int SLABS = 3;                              // consumer warpgroups, one 64-row slab each
@@ -421,6 +456,39 @@ constexpr int PART_FLOATS = SLABS * 64 * BN;          // a block's partial tile 
 constexpr int FLAG_BYTES = 1024, MAX_GRID = FLAG_BYTES / 4;  // the counts lead the workspace
 }  // namespace wg_cfg
 
+// tf32x3: the wgmma body's tiles (BM x BN, three 64-row slabs) and
+// schedule at BK = 32 fp32 (128 bytes of K) a step, on two rings and one
+// slab a consumer warpgroup: stages of x's slabs (TMA) with w_hi and w_lo
+// (K-major, written by the splitting warps); stages of w as TMA loads it
+// (MN-major, four 32-column boxes), read by the splitting warps; x_lo.
+namespace tf_cfg {
+using wg_cfg::SLABS;
+using wg_cfg::BM;
+using wg_cfg::BN;
+using wg_cfg::THREADS;
+constexpr int BK = 32, STAGES = 3, W_STAGES = 2;
+constexpr int X_BOX = 64 * BK * 4;                     // a 64-row slab of x: 8 KB
+constexpr int W_BOX = BK * 32 * 4;                     // BK rows of 32 columns of w: 4 KB
+constexpr int HALF = BN * BK * 4;                      // w_hi or w_lo, BN rows of BK: 16 KB
+constexpr int HI_OFF = SLABS * X_BOX, LO_OFF = HI_OFF + HALF, STAGE = LO_OFF + HALF;  // 56 KB
+constexpr int W_STAGE = (BN / 32) * W_BOX;             // 16 KB
+constexpr int W_RING = STAGES * STAGE, XLO = W_RING + W_STAGES * W_STAGE;  // offsets from the first stage
+constexpr int SMEM_BYTES = 128 + 1024 + XLO + SLABS * X_BOX;  // 230,528 of the 232,448 a block may have
+constexpr int SPLITTERS = 96;                          // warps 1-3 of the producer warpgroup
+constexpr int UNITS = (BK / 4) * (BN / 4);             // 4 x 4 blocks of w a stage
+static_assert(SMEM_BYTES <= 232448, "the rings fit a block");
+}  // namespace tf_cfg
+
+// A position in a ring of N stages: the stage and the parity of its use.
+template <int N>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ void advance() {
+    if (++stage == N) stage = 0, phase ^= 1;
+  }
+};
+
 // The schedule of kernels/fused_linear.py::wgmma_plan (hopper::WgSched,
 // walked by hopper::Segments): tiles of BM rows x BN columns, each `steps`
 // BK-steps of K deep; the last of a split tile's blocks to finish adds the
@@ -429,6 +497,77 @@ using hopper::Segments;
 using hopper::WgSched;
 
 __device__ __forceinline__ void consumers_sync() { hopper::named_sync<1, wg_cfg::SLABS * 128>(); }
+// the 128 threads of consumer warpgroup wg (named barriers 2 .. SLABS + 1)
+__device__ __forceinline__ void slab_sync(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory"); }
+
+// A consumer warpgroup's part of a chunk of a split tile: its partial
+// slab goes to the workspace (part: this thread's first value, v at
+// + v * 128) and the block counts itself in. Returns whether this block is
+// the tile's last; that block then holds in acc the partials summed in
+// chunk order, so the sum is the same whoever is last. Every consumer
+// warpgroup, live or not, calls it.
+__device__ __forceinline__ bool finish_split(float* acc, float* part, int* flags, int* last, int split, bool live,
+                                             const WgSched& s) {
+  using wg_cfg::PART_FLOATS;
+  if (live) {
+#pragma unroll
+    for (int v = 0; v < 64; ++v) __stcg(part + (size_t)blockIdx.x * PART_FLOATS + v * 128, acc[v]);
+  }
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) *last = atomicAdd(flags + split, 1) == s.chunks - 1;
+  consumers_sync();
+  if (!*last) return false;
+  __threadfence();
+  if (live) {
+    const int rem = s.tiles % s.grid;
+#pragma unroll
+    for (int v = 0; v < 64; ++v) acc[v] = __ldcg(part + (size_t)split * PART_FLOATS + v * 128);
+    for (int q = 1; q < s.chunks; ++q) {
+      const float* p = part + (size_t)(q * rem + split) * PART_FLOATS;
+#pragma unroll
+      for (int v = 0; v < 64; ++v) acc[v] += __ldcg(p + v * 128);
+    }
+  }
+  return true;
+}
+
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// The epilogue from the registers on a warpgroup's 64 x BN fragments at
+// (row0, col0) of member m: fp32 affine + softplus (+ gate), pairs stored.
+// N is even, so col < N means col + 1 < N.
+template <typename T, typename MT>
+__device__ __forceinline__ void store_slab(const float* acc, const float* __restrict__ a, const float* __restrict__ c,
+                                           const MT* __restrict__ mult, T* __restrict__ out, int m, int row0,
+                                           int col0, int R, int N) {
+  const int lane = threadIdx.x % 32, rr = row0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+#pragma unroll
+  for (int j = 0; j < wg_cfg::BN / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * (lane % 4);
+    if (col >= N) continue;
+    const float2 av = *reinterpret_cast<const float2*>(a + (size_t)m * N + col);
+    const float2 cv = *reinterpret_cast<const float2*>(c + (size_t)m * N + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rr + 8 * h;
+      if (r >= R) continue;
+      const size_t o = ((size_t)m * R + r) * N + col;
+      float v0 = softplus(acc[4 * j + 2 * h] * av.x + cv.x);
+      float v1 = softplus(acc[4 * j + 2 * h + 1] * av.y + cv.y);
+      if (mult != nullptr) {
+        const float2 mv = load2(mult + o);
+        v0 *= mv.x, v1 *= mv.y;
+      }
+      store2(out + o, v0, v1);
+    }
+  }
+}
 
 // Warp-specialised: warpgroups 0 .. SLABS-1 multiply (wgmma) and run the
 // epilogue, the last warpgroup's first thread issues the TMA loads. A block
@@ -484,7 +623,7 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid
     }
   } else {  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
     regs_alloc<152>();
-    const int warp = t / 32, lane = t % 32;
+    const int lane = t % 32;
     int* flags = reinterpret_cast<int*>(work);
     float* part = reinterpret_cast<float*>(work + FLAG_BYTES) + wg * 64 * BN + t;  // value v at + v * 128
     float acc[64];
@@ -515,73 +654,199 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid
         if (lane == 0) mbar_arrive(&empty[stage]);
         if (++stage == STAGES) stage = 0, phase ^= 1;
       }
-
-      if (split >= 0) {  // a chunk of a split tile: the last of its blocks finishes it
-        if (live) {
-#pragma unroll
-          for (int v = 0; v < 64; ++v) __stcg(part + (size_t)blockIdx.x * PART_FLOATS + v * 128, acc[v]);
-        }
-        __threadfence();
-        consumers_sync();
-        if (threadIdx.x == 0) *last = atomicAdd(flags + split, 1) == s.chunks - 1;
-        consumers_sync();
-        if (!*last) continue;
-        __threadfence();
-        if (live) {  // the partials in chunk order: the sum is the same whoever is last
-          const int rem = s.tiles % s.grid;
-#pragma unroll
-          for (int v = 0; v < 64; ++v) acc[v] = __ldcg(part + (size_t)split * PART_FLOATS + v * 128);
-          for (int q = 1; q < s.chunks; ++q) {
-            const float* p = part + (size_t)(q * rem + split) * PART_FLOATS;
-#pragma unroll
-            for (int v = 0; v < 64; ++v) acc[v] += __ldcg(p + v * 128);
-          }
-        }
-      }
-      if (!live) continue;
-
-      // epilogue from the registers: fp32 affine + softplus (+ gate), bf16 pairs
-      const int rr = row0 + 16 * warp + lane / 4;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = col0 + 8 * j + 2 * (lane % 4);
-        if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
-        const float2 av = *reinterpret_cast<const float2*>(a + (size_t)m * N + col);
-        const float2 cv = *reinterpret_cast<const float2*>(c + (size_t)m * N + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rr + 8 * h;
-          if (r >= R) continue;
-          const size_t o = ((size_t)m * R + r) * N + col;
-          float v0 = softplus(acc[4 * j + 2 * h] * av.x + cv.x);
-          float v1 = softplus(acc[4 * j + 2 * h + 1] * av.y + cv.y);
-          if (mult != nullptr) {
-            const float2 mv = load2(mult + o);
-            v0 *= mv.x, v1 *= mv.y;
-          }
-          *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v0, v1);
-        }
-      }
+      if (split >= 0 && !finish_split(acc, part, flags, last, split, live, s)) continue;
+      if (live) store_slab(acc, a, c, mult, out, m, row0, col0, R, N);
     }
   }
 }
 
-template <typename MT>
-int launch_wgmma(const void* x, const void* w, const void* a, const void* c, const void* mult, void* out,
-                 void* work, int M, int R, int K, int N, const WgSched& s, cudaStream_t st) {
+// w's raw stage as TMA wrote it (BK rows of K, four 32-column boxes, each
+// row 128 bytes with the 128-byte swizzle) into w_hi and w_lo of a stage,
+// K-major (BN rows of N, BK values of K each, the same swizzle): w_hi is w
+// itself, transposed (the tensor cores read its top 19 bits), w_lo is
+// tf32_lo(w). A unit is a 4 x 4 block: 4 rows of K read as one 16-byte
+// chunk each, 4 rows of N written as one chunk each to each half. Unit u: K
+// rows 4 kg .. 4 kg + 3 with kg = u % 8, N columns 4 nc .. 4 nc + 3 with
+// nc = 8 (q % 4) + (u + q / 4) % 8, q = u / 8, so the 8 threads of a
+// quarter-warp read and write 8 distinct 16-byte bank groups (chunk c of a
+// row r sits at c ^ (r % 8)): no bank conflicts.
+__device__ __forceinline__ void split_w(const unsigned char* raw, unsigned char* st, int i) {
+  using namespace tf_cfg;
+  for (int u = i; u < UNITS; u += SPLITTERS) {
+    const int kg = u % 8, q = u / 8, nc = 8 * (q % 4) + (u + q / 4) % 8;
+    float4 v[4];  // v[r]: K row 4 kg + r, N columns 4 nc .. 4 nc + 3
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * kg + r;
+      v[r] = *reinterpret_cast<const float4*>(raw + (nc / 8) * W_BOX + k * 128 + (((nc % 8) ^ (k % 8)) << 4));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float col[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) col[r] = e == 0 ? v[r].x : e == 1 ? v[r].y : e == 2 ? v[r].z : v[r].w;
+      const int n = 4 * nc + e, off = n * 128 + ((kg ^ (n % 8)) << 4);
+      *reinterpret_cast<float4*>(st + HI_OFF + off) = make_float4(col[0], col[1], col[2], col[3]);
+      *reinterpret_cast<uint4*>(st + LO_OFF + off) =
+          make_uint4(hopper::tf32_lo(col[0]), hopper::tf32_lo(col[1]), hopper::tf32_lo(col[2]), hopper::tf32_lo(col[3]));
+    }
+  }
+}
+
+// The tf32x3 body: fp32 x, w, out and gate. As the wgmma body (the same
+// tiles, schedule, split-tile sums and epilogue), with the product
+// x_hi w_hi + x_hi w_lo + x_lo w_hi on TF32 tensor cores, every operand
+// from shared memory (TF32 wgmma takes both K-major, and TMA does not
+// transpose 32-bit data). The producer warpgroup's first thread issues the
+// TMA loads; its warps 1-3 split each stage of w into K-major halves
+// (split_w). Each consumer warpgroup writes x_lo of its slab; x as loaded
+// is x_hi to the tensor cores (on an H100 the error against float64 was
+// that of an explicit x_hi = tf32(x) written in its place). A stage's
+// products go into a fresh fp32 tile that is then added to the
+// accumulator with round-to-nearest: the tensor cores' own sums do not
+// round to nearest, and over K / 8 x 3 sums into one accumulator they
+// biased it past the plain fp32 product's error.
+__global__ void __launch_bounds__(tf_cfg::THREADS, 1)
+fused_linear_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                           const float* __restrict__ a, const float* __restrict__ c,
+                           const float* __restrict__ mult, float* __restrict__ out,
+                           unsigned char* __restrict__ work, int R, int N, WgSched s) {
+  using namespace tf_cfg;
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char tf_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(tf_smem);  // x's slabs have landed
+  uint64_t* halves = full + STAGES;                       // w_hi and w_lo are written
+  uint64_t* empty = halves + STAGES;                      // the consumers are done with the stage
+  uint64_t* wfull = empty + STAGES;                       // w's raw stage has landed
+  uint64_t* wempty = wfull + W_STAGES;                    // the splitting warps are done with it
+  int* last = reinterpret_cast<int*>(wempty + W_STAGES);
+  const uint32_t base = smem_u32(tf_smem);
+  unsigned char* ring = tf_smem + (((base + 128 + 1023) & ~1023u) - base);
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&halves[i], SPLITTERS / 32);  // lane 0 of every splitting warp
+      mbar_init(&empty[i], SLABS * 4);
+    }
+    for (int i = 0; i < W_STAGES; ++i) mbar_init(&wfull[i], 1), mbar_init(&wempty[i], SPLITTERS / 32);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int tile, kb, ke, split;
+  Ring<STAGES> sr;
+  Ring<W_STAGES> wr;
+  if (wg == SLABS) {
+    regs_dealloc<56>();
+    if (t < 32) {  // ---- producer
+      if (t != 0) return;
+      const CUtensorMap* xm = &xmap;
+      const CUtensorMap* wm = &wmap;
+      for (Segments seg(s); seg.next(s, tile, kb, ke, split);) {
+        const int row0 = (tile % s.row_tiles) * BM, col0 = (tile / s.row_tiles % s.col_tiles) * BN;
+        const int m = tile / (s.row_tiles * s.col_tiles);
+        const int live = min(SLABS, (R - row0 + 63) / 64);
+        for (int ks = kb; ks < ke; ++ks) {
+          mbar_wait(&wempty[wr.stage], wr.phase ^ 1);
+          unsigned char* raw = ring + W_RING + wr.stage * W_STAGE;
+          mbar_expect_tx(&wfull[wr.stage], W_STAGE);
+          for (int q = 0; q < BN / 32; ++q) tma_load_3d(raw + q * W_BOX, wm, &wfull[wr.stage], col0 + 32 * q, ks * BK, m);
+          wr.advance();
+          mbar_wait(&empty[sr.stage], sr.phase ^ 1);
+          unsigned char* st = ring + sr.stage * STAGE;
+          mbar_expect_tx(&full[sr.stage], live * X_BOX);
+          for (int q = 0; q < live; ++q) tma_load_3d(st + q * X_BOX, xm, &full[sr.stage], ks * BK, row0 + 64 * q, m);
+          sr.advance();
+        }
+      }
+    } else {  // ---- splitting warps: w's raw stages into the stages' K-major halves
+      for (Segments seg(s); seg.next(s, tile, kb, ke, split);) {
+        for (int ks = kb; ks < ke; ++ks) {
+          mbar_wait(&wfull[wr.stage], wr.phase);
+          mbar_wait(&empty[sr.stage], sr.phase ^ 1);  // the consumers are done with the stage's last use
+          split_w(ring + W_RING + wr.stage * W_STAGE, ring + sr.stage * STAGE, t - 32);
+          fence_proxy_async();  // the halves are read by wgmma
+          __syncwarp();
+          if (t % 32 == 0) mbar_arrive(&wempty[wr.stage]), mbar_arrive(&halves[sr.stage]);
+          wr.advance();
+          sr.advance();
+        }
+      }
+    }
+  } else {  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+    regs_alloc<152>();
+    const int lane = t % 32;
+    int* flags = reinterpret_cast<int*>(work);
+    float* part = reinterpret_cast<float*>(work + wg_cfg::FLAG_BYTES) + wg * 64 * BN + t;
+    unsigned char* xlo = ring + XLO + wg * X_BOX;
+    const uint32_t xlo_a = smem_u32(xlo);
+    float acc[64], fresh[64];
+    for (Segments seg(s); seg.next(s, tile, kb, ke, split);) {
+      const int row0 = (tile % s.row_tiles) * BM + 64 * wg, col0 = (tile / s.row_tiles % s.col_tiles) * BN;
+      const int m = tile / (s.row_tiles * s.col_tiles);
+      const bool live = row0 < R;
+#pragma unroll
+      for (int v = 0; v < 64; ++v) acc[v] = 0.f;
+      for (int ks = kb; ks < ke; ++ks) {
+        mbar_wait(&full[sr.stage], sr.phase);
+        mbar_wait(&halves[sr.stage], sr.phase);
+        if (live) {
+          // x_lo of the slab, at the slab's (swizzled) positions; the last
+          // stage's products have read x_lo (waited)
+          const uint32_t sa = smem_u32(ring + sr.stage * STAGE), xa = sa + wg * X_BOX;
+          const float4* xs = reinterpret_cast<const float4*>(ring + sr.stage * STAGE + wg * X_BOX);
+#pragma unroll
+          for (int i = 0; i < X_BOX / 16 / 128; ++i) {
+            const float4 v = xs[t + 128 * i];
+            reinterpret_cast<uint4*>(xlo)[t + 128 * i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+          }
+          fence_proxy_async();  // x_lo is read by wgmma
+          slab_sync(wg);
+#pragma unroll
+          for (int v = 0; v < 64; ++v) fresh[v] = 0.f, fence_operand(fresh[v]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk) {
+            const uint64_t xh = desc_sw128(xa + 32 * kk, 16, 1024), whi = desc_sw128(sa + HI_OFF + 32 * kk, 16, 1024);
+            wgmma_m64n128k8_tf32(fresh, desc_sw128(xlo_a + 32 * kk, 16, 1024), whi);
+            wgmma_m64n128k8_tf32(fresh, xh, desc_sw128(sa + LO_OFF + 32 * kk, 16, 1024));
+            wgmma_m64n128k8_tf32(fresh, xh, whi);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int v = 0; v < 64; ++v) fence_operand(fresh[v]), acc[v] += fresh[v];
+        }
+        if (lane == 0) mbar_arrive(&empty[sr.stage]);
+        sr.advance();
+      }
+      if (split >= 0 && !finish_split(acc, part, flags, last, split, live, s)) continue;
+      if (live) store_slab(acc, a, c, mult, out, m, row0, col0, R, N);
+    }
+  }
+}
+
+// Checks a schedule and encodes the tensor maps of x (M, R, K) and w
+// (M, K, N) in boxes of x_box x 64 and w_box x BK (128 bytes wide), zeroes
+// the split tiles' counts and launches the TMA body `kernel`.
+template <typename Kernel, typename MT, typename T>
+int launch_tma(Kernel kernel, CUtensorMapDataType type, uint32_t elem_bytes, uint32_t bk, uint32_t w_box, int smem,
+               const void* x, const void* w, void* work, int M, int R, int K, int N, const WgSched& s,
+               cudaStream_t st, const void* a, const void* c, const MT* mult, T* out) {
   using namespace wg_cfg;
   const bool split = s.grid > 0 && s.tiles % s.grid > 0 && s.chunks > 1;
   if (!hopper::sched_ok(s, M, MAX_GRID) || (split && work == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap, wmap;  // x as (M, R, K) and w as (M, K, N), 64 x 64 boxes
-  if (!hopper::bf16_map_3d(&xmap, x, K, R, M, 64, 64) || !hopper::bf16_map_3d(&wmap, w, N, K, M, 64, 64))
+  const uint32_t x_box = 128 / elem_bytes;
+  CUtensorMap xmap, wmap;
+  if (!hopper::map_3d(&xmap, type, elem_bytes, x, K, R, M, x_box, 64) ||
+      !hopper::map_3d(&wmap, type, elem_bytes, w, N, K, M, w_box, bk))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(fused_linear_wgmma_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && split) err = cudaMemsetAsync(work, 0, FLAG_BYTES, st);  // the split tiles' counts
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_linear_wgmma_kernel<MT><<<s.grid, THREADS, SMEM_BYTES, st>>>(
-      xmap, wmap, static_cast<const float*>(a), static_cast<const float*>(c), static_cast<const MT*>(mult),
-      static_cast<bf16*>(out), static_cast<unsigned char*>(work), R, N, s);
+  kernel<<<s.grid, THREADS, smem, st>>>(xmap, wmap, static_cast<const float*>(a), static_cast<const float*>(c), mult,
+                                        out, static_cast<unsigned char*>(work), R, N, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -687,19 +952,34 @@ extern "C" int fused_linear_act_launch(const void* x, const void* w, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma body (bf16 x, w and out; mult bf16 or, with mult_f32, fp32) on
-// the schedule of kernels/fused_linear.py::wgmma_plan. work: the plan's
+// The TMA bodies on the schedule of kernels/fused_linear.py::wgmma_plan:
+// wgmma (is_bf16: bf16 x, w and out; mult bf16 or, with mult_f32, fp32) at
+// BK = 64, tf32x3 (fp32 x, w, out and mult) at BK = 32. work: the plan's
 // workspace (a count a split tile, then a partial tile a block), null where
 // no tile is split.
 extern "C" int fused_linear_wgmma_launch(const void* x, const void* w, const void* a, const void* c,
                                          const void* mult, void* out, void* work, int M, int R, int K, int N,
-                                         int mult_f32, int row_tiles, int col_tiles, int steps, int tiles,
-                                         int grid, int chunks, void* stream) {
+                                         int is_bf16, int mult_f32, int row_tiles, int col_tiles, int steps,
+                                         int tiles, int grid, int chunks, void* stream) {
   const WgSched s{row_tiles, col_tiles, steps, tiles, grid, chunks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mult_f32) return launch_wgmma<float>(x, w, a, c, mult, out, work, M, R, K, N, s, st);
-  return launch_wgmma<bf16>(x, w, a, c, mult, out, work, M, R, K, N, s, st);
+  if (!is_bf16 && mult_f32) return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_bf16)
+    return launch_tma(fused_linear_tf32x3_kernel, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, tf_cfg::BK, 32,
+                      tf_cfg::SMEM_BYTES, x, w, work, M, R, K, N, s, st, a, c, static_cast<const float*>(mult),
+                      static_cast<float*>(out));
+  if (mult_f32)
+    return launch_tma(fused_linear_wgmma_kernel<float>, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wg_cfg::BK, 64,
+                      wg_cfg::SMEM_BYTES, x, w, work, M, R, K, N, s, st, a, c, static_cast<const float*>(mult),
+                      static_cast<bf16*>(out));
+  return launch_tma(fused_linear_wgmma_kernel<bf16>, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wg_cfg::BK, 64,
+                    wg_cfg::SMEM_BYTES, x, w, work, M, R, K, N, s, st, a, c, static_cast<const bf16*>(mult),
+                    static_cast<bf16*>(out));
 }
+
+// The dynamic shared memory a block of the TMA body takes (is_bf16: wgmma,
+// else tf32x3), for kernels/fused_linear.py's plan to be checked against.
+extern "C" int fused_linear_smem_bytes(int is_bf16) { return is_bf16 ? wg_cfg::SMEM_BYTES : tf_cfg::SMEM_BYTES; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,13 +1,14 @@
-// Hopper (sm_90a) building blocks of the K1 wgmma body (fused_linear.cu),
+// Hopper (sm_90a) building blocks of K1's wgmma and tf32x3 bodies (fused_linear.cu),
 // the K3 wgmma body (attention.cu) and the int8 GEMM of K4/K5
 // (int8_gemm.cuh): mbarriers, TMA tile loads, the tensor maps they read,
 // wgmma descriptors, the bf16 products (m64n128k16, and m64n64k16 /
 // m64n16k16 with B K-major or MN-major, A from shared memory or from
-// registers), the s8 product m64n128k32, setmaxnreg, and the persistent
-// schedule that K1's and the int8 GEMM's bodies walk.
+// registers), the s8 product m64n128k32, the TF32 product m64n128k8 and the
+// split into TF32 halves it takes, setmaxnreg, and the
+// persistent schedule that K1's and the int8 GEMM's bodies walk.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
-// whose inner extent is 128 bytes (64 bf16, 128 int8) lands as rows of 128
+// whose inner extent is 128 bytes (64 bf16, 128 int8, 32 fp32) lands as rows of 128
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), in atoms
 // of 8 rows (1024 bytes) that start 1024-byte aligned. wgmma reads such
 // tiles through a descriptor (start address, leading and stride byte
@@ -24,6 +25,9 @@
 //   int8 (both operands K-major, as 8-bit wgmma requires; rows of 128 K):
 //     the same descriptor, SBO = 1024 bytes; the k32 step kk starts 32 kk
 //     bytes into each row.
+//   TF32 (both operands K-major, as 32-bit wgmma requires; rows of 32 fp32
+//     of K): the same descriptor, SBO = 1024 bytes; the k8 step kk starts
+//     32 kk bytes into each row.
 
 #pragma once
 
@@ -131,11 +135,7 @@ inline bool map_3d(CUtensorMap* map, CUtensorMapDataType type, uint64_t bytes, c
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16 (b0 = 64) and int8 (b0 = 128) maps of map_3d
-inline bool bf16_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
-                        uint32_t b1) {
-  return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2, b0, b1);
-}
+// the int8 map of map_3d (b0 = 128)
 inline bool s8_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
                       uint32_t b1) {
   return map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, d0, d1, d2, b0, b1);
@@ -176,6 +176,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // the asynchronous product
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a wgmma that reads them through a descriptor)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // d (64 x 128 fp32, a warpgroup's fragments) += A (64 x 16, K-major) @
 // B (16 x 128, MN-major: imm-trans-b = 1), bf16 operands in shared memory.
@@ -279,6 +283,37 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(1));
 }
 #undef WG_R8
+
+// The TF32 halves of v: hi = trunc(v), the top 19 bits, which is what a
+// TF32 wgmma reads of a 32-bit value (so v itself serves as hi), and lo =
+// v - hi rounded to TF32 (to nearest, ties away, as cvt.rna.tf32.f32):
+// v = hi + lo within 2^-21 |v|. Integer operations (cvt.rna.tf32.f32 runs
+// on the conversion pipe, and was the slower split on an H100). An Inf or a
+// NaN has lo = 0, so hi carries it into the products.
+__device__ __forceinline__ uint32_t tf32_lo(float v) {
+  const float rest = v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u);
+  return rest == rest ? (__float_as_uint(rest) + 0x1000u) & 0xFFFFE000u : 0u;
+}
+
+// d (64 x 128 fp32) += A (64 x 8 tf32, K-major) @ B (8 x 128 tf32,
+// K-major), both in shared memory as fp32 bits (32-bit wgmma takes both
+// K-major and has no transpose immediates). Fragments as m64n128k16's.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48),
+        WG_F8(d, 56)
+      : "l"(da), "l"(db), "r"(1));
+}
 
 #undef WG_F8
 

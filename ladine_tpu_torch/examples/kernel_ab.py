@@ -1,7 +1,8 @@
-"""Time K3 (``flash_attention``), K4 (``int8_linear_softplus``), K5a
-(``int8_eps_l12``) and K5b (``int8_eps_l34``) of two or more checkouts of
-the port on one card, in turns, so that a change to a kernel is compared
-with its parent on the same card in the same call.
+"""Time K1's float32 lin2/lin3 (``fused_linear_act``), K3
+(``flash_attention``), K4 (``int8_linear_softplus``), K5a (``int8_eps_l12``)
+and K5b (``int8_eps_l34``) of two or more checkouts of the port on one card,
+in turns, so that a change to a kernel is compared with its parent on the
+same card in the same call.
 
     python ladine_tpu_torch/examples/kernel_ab.py --roots PARENT . [--out FILE]
 
@@ -9,7 +10,10 @@ Each root is a directory that holds a ``ladine_tpu_torch`` package (a
 checkout, or a ``git archive`` of one). Each runs in a process of its own,
 which builds that root's kernels from its sources, in the order of
 ``--roots`` and then reversed (A, B, B, A). A process times each kernel on
-the same seeded inputs: K3 in bfloat16 and float32 on the strided slices of
+the same seeded inputs: K1 in float32 at (5, R, 4096) -> 4096 with R = 160
+(batch 8) and 1400 (batch 70), without a gate, with its body
+(``fused_linear.plan``) and its error and the plain version's against a
+float64 product; K3 in bfloat16 and float32 on the strided slices of
 a fused qkv projection at the serving batch 8 (196 tokens), a training
 batch 30 (197 tokens; 12 heads of 64 and ConViT's 16 of 48) and the
 evidence batch 70 (197); K4 in both schemes (lin2 symmetric, lin3
@@ -19,8 +23,14 @@ on float32 and bfloat16 rows; device time by CUDA events over
 back-to-back calls behind a spin kernel, and each output's largest
 difference from the plain version. K4's and K5a's outputs (h and its row
 max) must be the same bits in every root: the script exits 1 where they
-differ. The card's name and power limit lead the output; the last line
-is the JSON record of every run.
+differ. A root whose K1 has the ``tf32x3`` body also times it against
+``simt`` through their C entries at K1's float32 shapes from the digits'
+K = 64 to K = 4096 (where ``fused_linear.SIMT_MAX_K`` comes from). Last,
+each root serves graphed ``parity`` requests of batch 8 at full width
+(random weights from a seed: the bf16 guidance, five members in float32,
+then in bf16), three after the capture.
+The card's name and power limit lead the output; the last line is the JSON
+record of every run.
 """
 
 from __future__ import annotations
@@ -34,6 +44,10 @@ import sys
 
 K3_SHAPES = ((8, 196, 12, 64), (30, 197, 12, 64), (30, 197, 16, 48), (70, 197, 12, 64))
 INT8_ROWS = (160, 1400)
+K1_ROWS = (160, 1400)
+# K1 float32 (M, R, K = N) shapes where a root with the tf32x3 body times it against simt
+BODY_SHAPES = ((5, 640, 64), (1, 4100, 64), (5, 640, 256), (5, 160, 1024), (5, 160, 2048), (5, 160, 4096))
+KINDS = ("k1", "k3", "k4", "k5a", "k5b")
 
 
 def _cuda_ms(torch, fn, iters: int, spin: int = 1_000_000) -> float:
@@ -65,6 +79,7 @@ def worker(root: str) -> dict:
     import torch
 
     from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import fused_linear
     from ladine_tpu_torch.kernels import int8 as Q
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,7 +88,21 @@ def worker(root: str) -> dict:
     def rnd(*shape, lo=-1.0, hi=1.0, dtype=torch.float32):
         return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
 
-    out = {"root": root, "package": os.path.dirname(K.__file__), "k3": {}, "k4": {}, "k5a": {}, "k5b": {}}
+    out = {"root": root, "package": os.path.dirname(K.__file__), **{kind: {} for kind in KINDS}}
+    w1 = rnd(5, 4096, 4096, lo=-4096**-0.5, hi=4096**-0.5)
+    a1, c1 = rnd(5, 4096, lo=0.5, hi=1.5), rnd(5, 4096, lo=-0.5, hi=0.5)
+    for r in K1_ROWS:
+        args = (rnd(5, r, 4096, lo=0.0, hi=2.0), w1, a1, c1, None)
+        got, plain = K.fused_linear_act(*args), K.fused_linear_act_plain(*args)
+        ref = torch.nn.functional.softplus(torch.matmul(args[0].double(), w1.double()) * a1.double().unsqueeze(1)
+                                           + c1.double().unsqueeze(1))
+        out["k1"][f"R={r} float32"] = dict(ms=_cuda_ms(torch, lambda: K.fused_linear_act(*args), 20),
+                                           max_abs_err=float((got - plain).abs().max()),
+                                           err_float64=float((got.double() - ref).abs().max()),
+                                           plain_err_float64=float((plain.double() - ref).abs().max()),
+                                           body=fused_linear.plan(torch.float32, 4096, 4096, True)[0])
+    if hasattr(fused_linear, "TF32_STEP_K"):  # a root with the tf32x3 body
+        out["bodies"] = _bodies(torch, fused_linear)
     for b, n, h, d in K3_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = rnd(b, n, 3, h, d, lo=-2.0, hi=2.0, dtype=dtype)
@@ -115,7 +144,77 @@ def worker(root: str) -> dict:
             out["k5b"][rows] = dict(
                 ms=_cuda_ms(torch, lambda: K.int8_eps_l34(*args), 50), max_abs_err=float(err),
                 repeats_bit_for_bit=bool(torch.equal(first, K.int8_eps_l34(*args))))
+    out["requests"] = _requests(torch)
     return out
+
+
+def _bodies(torch, fl) -> dict:
+    """K1 float32 through the simt and the tf32x3 C entries, in turns, at
+    BODY_SHAPES: ms and the largest difference from the plain version. Its
+    own generator: the other kernels' inputs stay those of a root without
+    the tf32x3 body."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def rnd(*shape, lo, hi):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {}
+    for m, r, k in BODY_SHAPES:
+        x, w = rnd(m, r, k, lo=0.0, hi=2.0), rnd(m, k, k, lo=-k**-0.5, hi=k**-0.5)
+        a, c = rnd(m, k, lo=0.5, hi=1.5), rnd(m, k, lo=-0.5, hi=0.5)
+        ref = fl.fused_linear_act_plain(x, w, a, c)
+        outs = {name: torch.empty_like(ref) for name in ("simt", "tf32x3")}
+        p = fl.wgmma_plan(m, r, k, k, fl.TF32_STEP_K)
+        work = torch.empty(max(p.work_bytes, 1), dtype=torch.uint8, device="cuda")
+        ptrs = (x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(), None)
+        calls = {
+            "simt": lambda: fl._lib()(*ptrs, outs["simt"].data_ptr(), m, r, k, k, 0, 0, 1, fl._BODIES["simt"], stream),
+            "tf32x3": lambda: fl._wgmma_lib()(*ptrs, outs["tf32x3"].data_ptr(), work.data_ptr(), m, r, k, k, 0, 0,
+                                              p.row_tiles, p.col_tiles, p.steps, p.tiles, p.grid, p.chunks, stream),
+        }
+        times = {name: [] for name in calls}
+        for name in ("simt", "tf32x3", "tf32x3", "simt"):
+            if calls[name]() != 0:
+                raise RuntimeError(f"K1 {name} launch failed at {(m, r, k)}")
+            times[name].append(_cuda_ms(torch, calls[name], 20 if k >= 1024 else 200))
+        rec[str((m, r, k, k))] = {name: dict(ms=times[name], max_abs_err=float((outs[name] - ref).abs().max()))
+                                  for name in calls}
+    return rec
+
+
+def _requests(torch) -> dict:
+    """Three graphed parity requests of batch 8 (after the capture) on
+    float32 members and on bf16 members, behind one bf16 guidance: ms each
+    and K1's launches over the three."""
+    import time
+
+    import numpy as np
+
+    import ladine_tpu_torch as L
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.models import init_random_
+
+    guidance = init_random_(L.SEViTGuidance(device="cuda", dtype=torch.bfloat16),
+                            torch.Generator(device="cuda").manual_seed(0))
+    sched = L.DiffusionSchedule.create("linear", 1000, 1e-4, 0.02, device="cuda")
+    images = np.random.default_rng(0).random((8, 224, 224, 3), dtype="float32")
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_random_(L.ConditionalModel(5, device="cuda", dtype=dtype),
+                             torch.Generator(device="cuda").manual_seed(1))
+        pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
+        pred.predict(images)  # the capture
+        K.launch_counts.clear()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict(images)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rec[f"parity {str(dtype)[6:]} members"] = dict(graph_ms=ms, k1_launches=K.launch_counts["fused_linear_act"])
+        del pred, model
+        torch.cuda.empty_cache()
+    return rec
 
 
 def main(argv=None) -> int:
@@ -143,10 +242,17 @@ def main(argv=None) -> int:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        for kind in ("k3", "k4", "k5a", "k5b"):
-            for key, rec in runs[-1][kind].items():
+        for kind in KINDS:
+            for key, rec in runs[-1].get(kind, {}).items():
                 print(f"{root}: {kind} {key}: {rec['ms']:.4f} ms, max_abs_err {rec['max_abs_err']:.3e}"
-                      + (f", repeats bit for bit: {rec['repeats_bit_for_bit']}" if kind == "k5b" else ""))
+                      + (f", repeats bit for bit: {rec['repeats_bit_for_bit']}" if kind == "k5b" else "")
+                      + (f", body {rec['body']}, against float64 {rec['err_float64']:.3e} (plain "
+                         f"{rec['plain_err_float64']:.3e})" if kind == "k1" else ""))
+        for shape, rec in runs[-1].get("bodies", {}).items():
+            print(f"{root}: K1 float32 {shape}: " + ", ".join(f"{name} {min(r['ms']):.4f} ms" for name, r in rec.items()))
+        for name, rec in runs[-1].get("requests", {}).items():
+            print(f"{root}: {name}: graphed {', '.join(f'{t:.1f}' for t in rec['graph_ms'])} ms, "
+                  f"K1 launches {rec['k1_launches']}")
     # K4 and K5a store h from exact int32 sums with the same arithmetic: every root the same bits
     differ = sorted({f"{kind} {key}" for run in runs for kind in ("k4", "k5a") for key, rec in run[kind].items()
                      if rec["digest"] != runs[0][kind][key]["digest"]})

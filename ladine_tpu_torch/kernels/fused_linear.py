@@ -11,7 +11,7 @@ goes through :func:`fused_linear_act_plain`; a CUDA tensor goes through the
 kernel, or the wrapper raises. Both are implementations of one custom op
 (``kernels/_build.py``).
 
-The kernel has four bodies, chosen by shape and dtype (:func:`plan`):
+The kernel has five bodies, chosen by shape and dtype (:func:`plan`):
 ``small_k`` for K <= 16 in either dtype (lin1 up to 8 classes, K = 4 at 2:
 an outer product and an elementwise pass); ``wgmma`` for larger K in
 bfloat16 where K and N are multiples of 8 and every pointer is 16-byte
@@ -22,13 +22,21 @@ a persistent grid of at most 132 blocks on the schedule of
 for lin2/lin3; the bytes bound it at R = 160 rows a member (each weight
 strip is read once) and the operations at R = 1400, and a split tile's
 partials are summed in a fixed order, so two launches agree bit for bit.
+``tf32x3`` is its float32 counterpart, for the float32 shapes a tensor map
+describes (K and N multiples of 4, every pointer 16-byte aligned) above
+K = :data:`SIMT_MAX_K` (lin2 and lin3 at the paper's widths): the same
+tiles and schedule at :data:`TF32_STEP_K`, the product split as
+x_hi w_hi + x_hi w_lo + x_lo w_hi on TF32 tensor cores (hi a value's top
+19 bits, lo the rest rounded to TF32), which holds float32's 1e-4 where one
+TF32 pass does not.
 ``mma`` takes the other bfloat16 shapes (K or N off 8, an unaligned
 pointer; lin1 above 8 classes, K = 20 at 10: ``mma.sync`` tiles of 160
-rows x 128 columns, K split over a cluster pair of blocks); ``simt`` larger
-K in float32. lin1's gate ``mult`` is the float32 features beside bfloat16
-x and w, since the JAX kernel multiplies by them in float32: the bfloat16
-bodies read a float32 gate at any K. Each launch counts as one
-``fused_linear_act``.
+rows x 128 columns, K split over a cluster pair of blocks); ``simt`` the
+other float32 shapes (K or N off 4, an unaligned pointer, and the small K
+where it was measured faster: the digits' K = 64). lin1's gate
+``mult`` is the float32 features beside bfloat16 x and w, since the JAX
+kernel multiplies by them in float32: the bfloat16 bodies read a float32
+gate at any K. Each launch counts as one ``fused_linear_act``.
 """
 
 from __future__ import annotations
@@ -47,8 +55,26 @@ SMALL_K = 16  # the largest K the small_k body takes
 _BODIES = {"small_k": 0, "mma": 1, "simt": 2}  # the codes of csrc/fused_linear.cu
 SMS = 132  # streaming multiprocessors of the H100 SXM: the wgmma body's most blocks
 TILE_ROWS, TILE_COLS, STEP_K = 192, 128, 64  # BM, BN, BK of the wgmma body (wg_cfg)
+TF32_STEP_K = 32  # BK of the tf32x3 body (tf_cfg): 128 bytes of float32 K, its tiles the wgmma body's
+# float32 K up to this stays on simt: on an H100 SXM at 700 W simt was the
+# faster body at every such shape examples/kernel_ab.py times (the digits'
+# and the GMM check's K = N = 64: 0.0101-0.0104 against 0.0133 ms at
+# R = 640, 0.0105-0.0106 against 0.0137-0.0138 at (1, 4100); K = 256:
+# 0.0266-0.0267 against 0.0327; K = 1024, R = 160: 0.0819-0.0821 against
+# 0.0935-0.0938), tf32x3 from K = 2048 (0.1785-0.1792 against
+# 0.2826-0.2829 ms at R = 160)
+SIMT_MAX_K = 1024
 PART_FLOATS = TILE_ROWS * TILE_COLS  # a block's partial tile in the workspace
 FLAG_BYTES = 1024  # the workspace's counts of the split tiles, before the partial tiles
+SMEM_LIMIT = 232448  # the dynamic shared memory a block of the H100 may take
+# tf32x3's shared memory: the barriers (128 bytes), the alignment of the
+# rings to 1024, then 3 stages of x's three 64-row slabs with w_hi and w_lo
+# (128 rows of K each), 2 stages of w as loaded (K x 128) and x_lo (three
+# slabs)
+TF32X3_SLABS_BYTES = 4 * TF32_STEP_K * TILE_ROWS
+TF32X3_W_BYTES = 4 * TF32_STEP_K * TILE_COLS
+TF32X3_SMEM_BYTES = 128 + 1024 + 3 * (TF32X3_SLABS_BYTES + 2 * TF32X3_W_BYTES) + 2 * TF32X3_W_BYTES \
+    + TF32X3_SLABS_BYTES
 
 
 class WgmmaPlan(NamedTuple):
@@ -146,7 +172,7 @@ def _lib():
 def _wgmma_lib():
     fn = _build.load(_NAME).fused_linear_wgmma_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -185,17 +211,18 @@ def plan(dtype: torch.dtype, k: int, n: int, aligned: bool):
     whether its tiles move as 16-byte vectors. ``aligned``: every pointer is
     16-byte aligned. small_k needs N % 8 == 0 for vectors (8 outputs a
     thread); the GEMM bodies need K and N multiples of the 16-byte vector.
-    In bfloat16 those are the shapes a TMA tensor map describes, and they
-    take ``wgmma``; the rest (ragged K or N, a pointer off 16 bytes) take
-    ``mma``, staged element by element: a dispatch by shape, not a
-    fallback."""
+    Those are the shapes a TMA tensor map describes, and they take
+    ``wgmma`` in bfloat16 and, above :data:`SIMT_MAX_K`, ``tf32x3`` in
+    float32; the rest (ragged K or N, a pointer off 16 bytes, float32 K up
+    to :data:`SIMT_MAX_K`) take ``mma`` (bfloat16, staged element by element)
+    or ``simt`` (float32): a dispatch by shape, not a fallback."""
     if k <= SMALL_K:
         return "small_k", aligned and n % 8 == 0
     vw = 16 // (2 if dtype == torch.bfloat16 else 4)
     vec = aligned and k % vw == 0 and n % vw == 0
     if dtype == torch.bfloat16:
         return ("wgmma", True) if vec else ("mma", False)
-    return "simt", vec
+    return ("tf32x3", True) if vec and k > SIMT_MAX_K else ("simt", vec)
 
 
 def fused_linear_act(
@@ -212,8 +239,9 @@ def fused_linear_act(
     is float32 (lin1, whose gate is the float32 features), at any K.
     Returns (M, R, N) in x.dtype. On the card the kernel body follows from K,
     N, the dtype and the pointers' alignment (:func:`plan`): small_k for K <=
-    16, else wgmma (or mma off the tensor-map shapes) in bfloat16 and simt
-    in float32. The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
+    16, else wgmma in bfloat16 and tf32x3 in float32 (mma and simt off the
+    tensor-map shapes, simt at float32 K up to SIMT_MAX_K). The op
+    ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
     return _op(x, w, a, c, mult)
 
 
@@ -242,11 +270,11 @@ def _launch(x, w, a, c, mult):
     mult_f32 = int(mult is not None and mult.dtype != x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if body == "wgmma":
-            p = wgmma_plan(m, r, k, n)
+        if body in ("wgmma", "tf32x3"):
+            p = wgmma_plan(m, r, k, n, STEP_K if body == "wgmma" else TF32_STEP_K)
             work = torch.empty(p.work_bytes, dtype=torch.uint8, device=x.device) if p.work_bytes else None
             err = _wgmma_lib()(
-                *ptrs, None if work is None else work.data_ptr(), m, r, k, n, mult_f32,
+                *ptrs, None if work is None else work.data_ptr(), m, r, k, n, int(body == "wgmma"), mult_f32,
                 p.row_tiles, p.col_tiles, p.steps, p.tiles, p.grid, p.chunks, stream,
             )
         else:

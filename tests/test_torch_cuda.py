@@ -7,7 +7,9 @@ a machine with the card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 differs from the plain version only in summation order
-(1e-4); bf16 outputs are rounded to bf16 (2^-8 relative), so 1e-2 (in
+(1e-4; K1's ``tf32x3`` body also drops the product of the two TF32 low
+halves, ~2^-21 relative, and sums each stage on the tensor cores); bf16
+outputs are rounded to bf16 (2^-8 relative), so 1e-2 (in
 attention the probabilities are rounded to bf16 too, as in the plain
 version, and can round apart where the sums differ in order). The int8
 kernels pick the same int8 codes as their plain versions (same IEEE
@@ -224,8 +226,8 @@ def test_fused_linear_act_ragged_and_unaligned_take_the_mma_body(cuda, case):
 def test_fused_linear_act_at_the_evidence_test_batch(cuda, dtype, layer):
     """The evidence run's test batch: 70 images x 20 trials = 1400 rows a
     member, five members; lin1 (K = 4, the float32 features as the gate:
-    ``small_k``) and lin2/lin3 (K = N = 4096: ``mma`` in bf16, ``simt`` in
-    float32)."""
+    ``small_k``) and lin2/lin3 (K = N = 4096: ``wgmma`` in bf16, ``tf32x3``
+    in float32)."""
     k = 4 if layer == "lin1" else 4096
     x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(21), 5, 1400, k, 4096))
     x, w = x.to(dtype), w.to(dtype)
@@ -235,6 +237,77 @@ def test_fused_linear_act_at_the_evidence_test_batch(cuda, dtype, layer):
     torch.cuda.synchronize()
     assert launch_counts["fused_linear_act"] == 1 and out.dtype == dtype and out.shape == (5, 1400, 4096)
     _close(out, fused_linear_act_plain(x, w, a, c, gate), 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 20, 160, 161, 1400])
+def test_fused_linear_act_tf32x3_body_at_any_row_count(cuda, r):
+    """float32 lin2/lin3 (K = N = 4096; the tf32x3 body) on the path's five
+    members at row counts in one slab, one row tile (split tiles) and the
+    evidence batch, with and without a float32 gate: within float32's 1e-4
+    of the plain version (a float32 product with TF32 off)."""
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(31), 5, r, 4096, 4096))
+    assert fl_mod.plan(x.dtype, 4096, 4096, True) == ("tf32x3", True)
+    for m in (None, mult):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, m)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.float32
+        _close(out, fused_linear_act_plain(x, w, a, c, m), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [160, 1400])
+def test_fused_linear_act_tf32x3_body_is_deterministic(cuda, r):
+    """Two launches of the tf32x3 body give the same bits: at R = 160 the
+    remainder's tiles are split in K quarters and summed in chunk order;
+    at R = 1400 none is split."""
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(37), 5, r, 4096, 4096))
+    assert (fl_mod.wgmma_plan(5, r, 4096, 4096, fl_mod.TF32_STEP_K).chunks > 1) == (r == 160)
+    for m in (None, mult):
+        first = fused_linear_act(x, w, a, c, m)
+        second = fused_linear_act(x, w, a, c, m)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-9-classes", "digits", "k1028-n4",
+                                  "k2048-n68"])
+def test_fused_linear_act_float32_bodies_by_the_plan(cuda, case):
+    """float32 shapes a tensor map cannot describe (K or N off 4, a pointer
+    off 16 bytes) and K up to SIMT_MAX_K (the digits' lin2) take ``simt``,
+    the others ``tf32x3`` (the smallest K and N it takes: one step past K's
+    end and 124 columns past N's; a ragged column tile); each matches the
+    plain version at 1e-4."""
+    m, r, k, n = {"ragged-K": (2, 33, 4098, 256), "ragged-N": (2, 33, 1028, 4098), "unaligned": (2, 33, 2048, 256),
+                  "lin1-9-classes": (5, 160, 18, 4096), "digits": (5, 640, 64, 64), "k1028-n4": (2, 9, 1028, 4),
+                  "k2048-n68": (3, 200, 2048, 68)}[case]
+    x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(41), m, r, k, n))
+    if case == "unaligned":  # x one element into its storage: 4 bytes off 16
+        x = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)[1:1 + x.numel()].view(m, r, k).copy_(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, a, c, mult))
+    assert aligned == (case != "unaligned")
+    want = "tf32x3" if case in ("k1028-n4", "k2048-n68") else "simt"
+    assert fl_mod.plan(x.dtype, k, n, aligned)[0] == want
+    for g in (None, mult):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, g)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1
+        _close(out, fused_linear_act_plain(x, w, a, c, g), 1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_linear_act_tma_bodies_take_the_shared_memory_of_the_plan(cuda):
+    """The shared memory of a tf32x3 block, as the kernel states it, is the
+    module's (which the CPU tests hold under a block's limit)."""
+    import ctypes
+
+    fn = fl_mod._build.load("fused_linear").fused_linear_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert fn(0) == fl_mod.TF32X3_SMEM_BYTES <= fl_mod.SMEM_LIMIT
+    assert fn(1) <= fl_mod.SMEM_LIMIT
 
 
 @pytest.mark.cuda

@@ -143,7 +143,7 @@ BF16, F32 = torch.bfloat16, torch.float32
         (BF16, 4, 4096, True, ("small_k", True)),  # lin1 on the path
         (BF16, 4096, 4096, True, ("wgmma", True)),  # lin2 / lin3 on the path
         (F32, 4, 4096, True, ("small_k", True)),  # lin1 of the fp32 predictor
-        (F32, 4096, 4096, True, ("simt", True)),
+        (F32, 4096, 4096, True, ("tf32x3", True)),  # lin2 / lin3 of the fp32 predictor
         (BF16, 2, 4096, True, ("small_k", True)),
         (BF16, 16, 4096, True, ("small_k", True)),
         (BF16, 17, 4096, True, ("mma", False)),  # K not a multiple of 8
@@ -153,13 +153,13 @@ BF16, F32 = torch.bfloat16, torch.float32
         (BF16, 24, 17, True, ("mma", False)),
         (F32, 24, 17, True, ("simt", False)),
         (BF16, 256, 200, True, ("wgmma", True)),
-        (F32, 256, 200, True, ("simt", True)),
+        (F32, 256, 200, True, ("simt", True)),  # float32 K <= SIMT_MAX_K stays on simt
         (BF16, 72, 64, True, ("wgmma", True)),
         (F32, 40, 12, True, ("simt", True)),  # fp32's vector is 4 wide
         (BF16, 20, 64, True, ("mma", False)),  # lin1 at 10 classes (digits): K = 20
         (F32, 20, 64, True, ("simt", True)),
         (BF16, 64, 64, True, ("wgmma", True)),  # digits lin2 / lin3
-        (F32, 64, 64, True, ("simt", True)),
+        (F32, 64, 64, True, ("simt", True)),  # the digits' (and the GMM check's) K: simt was faster
         # what stays on mma: K or N off the 16-byte vector, a pointer off 16 bytes
         (BF16, 4100, 4096, True, ("mma", False)),
         (BF16, 4096, 4100, True, ("mma", False)),
@@ -167,6 +167,18 @@ BF16, F32 = torch.bfloat16, torch.float32
         (BF16, 24, 8, False, ("mma", False)),
         (BF16, 64, 64, False, ("mma", False)),
         (BF16, 18, 4096, True, ("mma", False)),  # lin1 at 9 classes
+        # what stays on simt: float32 K or N off 4, a pointer off 16 bytes
+        (F32, 4098, 4096, True, ("simt", False)),
+        (F32, 4096, 4098, True, ("simt", False)),
+        (F32, 4096, 4096, False, ("simt", False)),
+        (F32, 18, 4096, True, ("simt", False)),  # lin1 at 9 classes
+        (F32, 20, 4096, False, ("simt", False)),
+        (F32, 16, 4096, True, ("small_k", True)),
+        (F32, 17, 8, True, ("simt", False)),
+        (F32, 1024, 4096, True, ("simt", True)),  # SIMT_MAX_K
+        (F32, 1028, 4096, True, ("tf32x3", True)),
+        (F32, 1028, 4, True, ("tf32x3", True)),  # the smallest K and N tf32x3 takes
+        (F32, 1028, 4096, False, ("simt", False)),
     ],
 )
 def test_fused_linear_act_plan_is_a_function_of_shape_dtype_and_alignment(dtype, k, n, aligned, want):
@@ -182,7 +194,7 @@ def test_fused_linear_act_plan_ignores_the_row_count(r, dtype):
                         for i, s in enumerate([(5, r, 4096), (5, 4096, 8), (5, 8), (5, 8), (5, r, 8)]))
     m, r_, k, n = fl_mod._check(x, w, a, c, mult)
     assert (m, r_) == (5, r)
-    assert fl_mod.plan(dtype, k, n, True) == ("wgmma" if dtype == BF16 else "simt", True)
+    assert fl_mod.plan(dtype, k, n, True) == ("wgmma" if dtype == BF16 else "tf32x3", True)
     assert fl_mod.plan(dtype, 4, n, True) == ("small_k", True)
 
 
@@ -279,6 +291,80 @@ def test_wgmma_plan_is_a_function_of_the_shape_with_the_noted_waves(shape):
         assert p.tiles == 1280 and p.busy == pytest.approx(1280 / 1320)
     if r == 160:  # 160 tiles: 132 whole, 28 in quarters on 112 blocks
         assert p.busy == pytest.approx(160 / (132 * 1.25))
+
+
+TF32X3_SHAPES = [(5, r, 4096, 4096) for r in (1, 20, 160, 161, 1400)] + [(5, 640, 1028, 68), (2, 33, 2048, 4)]
+
+
+@pytest.mark.parametrize("shape", TF32X3_SHAPES, ids=str)
+def test_tf32x3_plan_covers_every_output_tile_once_and_fits_a_block(shape):
+    """The tf32x3 body runs the wgmma body's tiles and schedule at 128
+    bytes of float32 K a step: every (tile, K-step) on exactly one block,
+    each output element in exactly one tile, at most SMS blocks, split
+    tiles only in the remainder round; its rings (3 stages of x's slabs with
+    w's two TF32 halves, 2 of w as loaded) and x_lo fit the shared memory
+    of a block."""
+    m, r, k, n = shape
+    p = fl_mod.wgmma_plan(m, r, k, n, fl_mod.TF32_STEP_K)
+    assert fl_mod.plan(F32, k, n, True) == ("tf32x3", True)
+    assert p.steps == -(-k // 32) and p.grid == min(fl_mod.SMS, p.tiles)
+    assert _wgmma_walk(p).keys() == {(t, ks) for t in range(p.tiles) for ks in range(p.steps)}
+    cover = np.zeros((m, r, n), dtype=int)
+    for t in range(p.tiles):
+        mm, row0, col0 = fl_mod.wgmma_tile(p, t)
+        cover[mm, row0:row0 + fl_mod.TILE_ROWS, col0:col0 + fl_mod.TILE_COLS] += 1
+    assert (cover == 1).all()
+    rounds, rem = divmod(p.tiles, p.grid)
+    assert (p.work_bytes > 0) == (rem > 0 and p.chunks > 1)
+    if r <= fl_mod.TILE_ROWS and k == 4096:  # one row tile: 132 whole tiles, the other 28 in K quarters
+        assert (p.grid, p.chunks, p.waves) == (132, 4, 2)
+    if r == 1400:  # 1280 tiles: 9 waves of 132 and one of 92, none split
+        assert (p.tiles, p.waves, p.chunks, p.work_bytes) == (1280, 10, 1, 0)
+    slabs, w = 4 * 32 * 3 * 64, 4 * 32 * 128  # x's three slabs (or x_lo's) and w (or w_hi, or w_lo) a stage
+    assert fl_mod.TF32X3_SMEM_BYTES == 128 + 1024 + 3 * (slabs + 2 * w) + 2 * w + slabs == 230528
+    assert fl_mod.TF32X3_SMEM_BYTES <= fl_mod.SMEM_LIMIT
+
+
+def _tf32(t, ties):
+    """t rounded to TF32 (10 mantissa bits) as float32, to nearest: ties
+    away from zero (``cvt.rna.tf32.f32``, and the kernel's integer rounding)
+    or to even."""
+    bits = t.contiguous().view(torch.int32)
+    half = 0x1000 if ties == "away" else 0xFFF + ((bits >> 13) & 1)
+    return ((bits + half) & -8192).view(torch.float32)
+
+
+def _trunc(t):
+    """t's top 19 bits: what a TF32 product on the tensor cores reads of a float32 value."""
+    return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+@pytest.mark.parametrize("ties", ["away", "even"])
+def test_tf32x3_split_holds_the_float32_tolerance_where_one_tf32_pass_does_not(ties):
+    """The tf32x3 body's arithmetic, emulated: each of x and w split as
+    hi = trunc(v) (its top 19 bits) and lo = v - hi rounded to TF32
+    (``hopper::tf32_lo``), the product taken as x_hi w_hi + x_hi w_lo +
+    x_lo w_hi in float32, then K1's epilogue. At the path's lin2/lin3 shape
+    (5, 160, 4096) x (5, 4096, 4096) it is within K1's float32 tolerance
+    (1e-4 abs + 1e-4 rel) of a float64 reference; one TF32 pass on inputs
+    rounded to nearest (x_tf32 w_tf32) misses it, which is why the body
+    splits."""
+    rng = np.random.default_rng(29)
+    excess3 = excess1 = -1.0
+    for _ in range(5):  # member by member: one member's float64 weight is 128 MiB
+        x, w, a, c, _m = (torch.from_numpy(v[0]) for v in layer_inputs(rng, 1, 160, 4096, 4096))
+        ref = torch.nn.functional.softplus((x.double() @ w.double()) * a.double() + c.double())
+        xh, wh = _trunc(x), _trunc(w)
+        xl, wl = _tf32(x - xh, ties), _tf32(w - wh, ties)
+        for z, name in ((xl @ wh + xh @ wl + xh @ wh, "3"), (_tf32(x, ties) @ _tf32(w, ties), "1")):
+            out = torch.nn.functional.softplus(z * a + c).double()
+            excess = ((out - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
+            if name == "3":
+                excess3 = max(excess3, excess)
+            else:
+                excess1 = max(excess1, excess)
+    assert excess3 <= 0.0, excess3
+    assert excess1 > 0.0, excess1
 
 
 @pytest.mark.parametrize("k", [4, 16, 18, 20, 64, 4096])
