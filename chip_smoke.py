@@ -3,7 +3,15 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (no failure is caught):
+Phases, each fatal on failure (no failure is caught). Phase 13 runs in a
+second process of this script beside phases 6 and 7, and phase 12 in
+another beside phases 9-11 (``start_phase``; each process's output is
+printed when it has ended, and each phase's launches are its own
+process's); the host times those phases print are taken on a shared card
+and host. Every timed kernel check runs in the first process with nothing
+beside it: phase 2 before the second processes start, phase 12's and 13's
+shape checks after both have ended. Traces record the device's activity
+only.
 
 1. Environment and build: prints the card's name and power limit, builds
    every CUDA source of the port (one nvcc each, all started together).
@@ -19,7 +27,10 @@ Phases, each fatal on failure (no failure is caught):
    of 48) and the evidence batch 70, each beside its plain version, SDPA
    and its bound, with the route of ``attention.attention_plan`` (a
    sub-record each). K1 is timed at lin2/lin3 (its ``wgmma`` body) and lin1 (its
-   ``small_k`` body, a sub-record), and its lin2/lin3 body also at 20 and
+   ``small_k`` body, sub-records: K = 4 at (5, 160) -> 4096 in bf16 and
+   float32 with the gate a row an image, the path's, and a row a row, each
+   beside both bounds; the digits' K = 20 at (5, 640) -> 64 in both dtypes),
+   and its lin2/lin3 body also at 20 and
    1400 rows a member, each row beside ``torch.bmm`` on the same shapes as
    a GEMM-only yardstick (``cublas_gemm_ms``, never called by the port),
    with its body and its schedule (``fused_linear.wgmma_plan``: blocks,
@@ -126,7 +137,8 @@ Phases, each fatal on failure (no failure is caught):
    of them (``ROADMAP.md`` §3 F4), to fp32: 4 ulps; bf16: one ulp.
    (d) The hand-off: (b)'s debiased EMA as a bf16 ``ConditionalModel``
    behind a ``parity`` ``Predictor``, one batch-8 request eager and graphed,
-   equal, K1 3000 and K3 5 launches. (e) The ViT fine-tune (AdamW, fresh
+   equal, K1 3000 and K3 5 launches (untraced: phase 4 traces that
+   request). (e) The ViT fine-tune (AdamW, fresh
    2-class head): K3 12 launches and its VJP 12 runs a step. (f) The five
    mapping MLPs on one tap forward (K3 5 a step), fp32 Adam. (g) Two joint
    steps at the widths of ``configs/synthetic_tiny.yml`` (K3 at D = 16).
@@ -168,10 +180,11 @@ Phases, each fatal on failure (no failure is caught):
    behind phase 4's guidance (rebuilt from its seed): a ``parity`` request
    eager and graphed, equal exactly (K1 3000, K3 5), ``serving`` +
    ``use_int8_pallas`` (K4 100) and + ``pallas_fuse_ends`` (K5a, K5b 50),
-   each equal exactly, then three train steps of one member (fp32 Adam and EMA)
+   each equal exactly (untraced, as (c)'s request: phase 4 traces the same
+   kernels at the same shapes), then three train steps of one member (fp32 Adam and EMA)
    with ms a step and peak GiB. (c) An ``arch="simple"`` ``Predictor`` of
    five full-width members (150528 -> 300 -> 100 -> 4096): a ``parity``
-   request eager and graphed, equal (K1 3000); then ``encode`` at batch 8
+   request eager and graphed, equal (K1 3000; untraced); then ``encode`` at batch 8
    for five ``resnet18``/``resnet50`` members on 224x224x3 and
    ``lenet``/``lenet5``/``fashioncnn`` ones on 28x28x1, each against the
    same model on the CPU. Then, not counted, K1 at K = 2, K5a's lin1 pass
@@ -206,7 +219,8 @@ Phases, each fatal on failure (no failure is caught):
    bf16 guidance): losses within 2^-8 (one bf16 rounding unit) of it, and
    the rank's first moments no farther from it, leaf by leaf, than twice
    the one process's (floored at 2^-8 of the leaf's largest); parameters
-   atol 2.1e-3 against one process. ms a step and peak GiB a rank. Then,
+   atol 2.1e-3 against one process. ms of the step (a first call) and
+   peak GiB a rank. Then,
    not counted, K1, K3, K4, K5a and K5b against their plain versions at a
    rank's shapes (``check_phase11_shapes``).
 12. The 10-class real-data path at ``configs/digits.yml``'s widths (32 px,
@@ -349,16 +363,13 @@ def check_kernels():
         return torch.empty(*shape, device=dev).uniform_(lo, hi, generator=g).to(dtype)
 
     # K1 at lin2/lin3 (K = N = 4096, the wgmma body), with and without a bf16
-    # gate, and lin1 (K = 4, the small_k body) gated by the float32 features
+    # gate; lin1 (the small_k body) in k1_lin1_rows
     h = rnd(M, R, F_, lo=0.0, hi=2.0, dtype=bf16)
     w = rnd(M, F_, F_, lo=-F_**-0.5, hi=F_**-0.5, dtype=bf16)
     a, c = rnd(M, F_, lo=0.5, hi=1.5), rnd(M, F_, lo=-0.5, hi=0.5)
     f = rnd(M, R, F_)
-    y_in = rnd(M, R, 4, lo=0.0, hi=1.0, dtype=bf16)
-    w1 = rnd(M, 4, F_, lo=-0.5, hi=0.5, dtype=bf16)
     k1 = {}
-    for label, args in (("lin2/lin3", (h, w, a, c, None)), ("lin2 + gate", (h, w, a, c, f.to(bf16))),
-                        ("lin1", (y_in, w1, a, c, f))):
+    for label, args in (("lin2/lin3", (h, w, a, c, None)), ("lin2 + gate", (h, w, a, c, f.to(bf16)))):
         x_, w_, _, _, m_ = args
         out = K.fused_linear_act(*args)
         torch.cuda.synchronize()
@@ -399,12 +410,13 @@ def check_kernels():
               f"{bmm_ms:.4f}; plan: {p.tiles} tiles on {p.grid} blocks, {p.waves} wave(s), the last "
               f"{p.tiles % p.grid or p.grid} tiles in {p.chunks} K-chunk(s), busy {p.busy:.4f}")
     fp32_rows = float32_k1_rows(errs)
+    lin1_rows = k1_lin1_rows(errs)
     # the lin2/lin3 shape carries nearly all of the path's work; lin1 rides as a sub-record
     entries.append(dict(
         name="fused_linear_act", route="cuda", source="ladine_tpu_torch/csrc/fused_linear.cu",
         replaces="ladine_tpu/kernels/fused_linear.py:66", library_ms=None,
         cublas_gemm_ms=rows[str(R)]["bmm_ms"], **k1["lin2/lin3"], gate_ms=k1["lin2 + gate"]["ms"],
-        rows=rows, lin1=k1["lin1"], fp32=fp32_rows))
+        rows=rows, lin1=lin1_rows[LIN1_PATH], lin1_rows=lin1_rows, fp32=fp32_rows))
     entries[-1]["max_abs_err"] = max(errs)
 
     # K3 on the strided q/k/v slices of a fused qkv projection: the serving
@@ -442,6 +454,66 @@ def check_kernels():
         **{key: serving[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         body=serving["route"], shapes=k3, backward=check_attention_backward(g)))
     return entries
+
+
+LIN1_PATH = "bfloat16 K=4 (5, 160, 4096), gate (5, 8, 4096)"  # the path's lin1 in phase 2's records
+
+
+def k1_lin1_rows(errs):
+    """Phase 2: K1's lin1 (the small_k body) at the path's (5, 160) -> 4096,
+    K = 4 (batch 8, 20 trials), in bf16 (y_in and w1; the float32 features
+    as the gate) and in float32, with the gate a row an image (5, 8, 4096),
+    as the float chain passes it, and a row a row (5, 160, 4096); then the
+    digits' lin1, K = 20 at (5, 640) -> 64 with its 64 images' gate, in both
+    dtypes. Each against its plain version (bf16 2e-2, fp32 1e-4; appended
+    to ``errs``), with its time, the plain version's, its plan and both
+    bounds (the gate a row an image and a row a row; the body's fp32 FMA
+    rate). Returns the records by label."""
+    from ladine_tpu_torch import kernels as K
+    from ladine_tpu_torch.kernels import fused_linear
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, lo=-1.0, hi=1.0, dtype=f32):
+        return torch.empty(*shape, device="cuda").uniform_(lo, hi, generator=g).to(dtype)
+
+    recs = {}
+    for (m, images, trials, k, n) in ((5, BATCH, 20, 4, 4096), (5, 64, DIGITS_MC, 2 * DIGITS_CLASSES, 64)):
+        r = images * trials
+        f_img = rnd(m, images, n)
+        f_row = f_img.unsqueeze(1).expand(m, trials, images, n).reshape(m, r, n).contiguous()
+        a, c = rnd(m, n, lo=0.5, hi=1.5), rnd(m, n, lo=-0.5, hi=0.5)
+        for dtype, tol in ((bf16, 2e-2), (f32, 1e-4)):
+            y_in = rnd(m, r, k, lo=0.0, hi=1.0, dtype=dtype)
+            w1 = rnd(m, k, n, lo=-0.5, hi=0.5, dtype=dtype)
+            work = (2 * m * r * k * n, FP32_FLOP_PER_S)
+            out = K.fused_linear_act(y_in, w1, a, c, f_img)
+            bounds = {label: bound((y_in, w1, a, c, gate, out), work) for label, gate in (("image", f_img),
+                                                                                          ("row", f_row))}
+            gates = (("image", f_img),) + ((("row", f_row),) if k == 4 else ())
+            for gate_label, gate in gates:
+                args = (y_in, w1, a, c, gate)
+                label = f"{str(dtype)[6:]} K={k} {(m, r, n)}, gate {tuple(gate.shape)}"
+                body = fused_linear.plan(dtype, k, n, True)[0]
+                got = K.fused_linear_act(*args)
+                torch.cuda.synchronize()
+                errs.append(compare(f"fused_linear_act lin1 {label} body={body}", got,
+                                    K.fused_linear_act_plain(*args), tol))
+                b_ms, b_by = bounds[gate_label]
+                p = fused_linear.small_k_plan(m, r, k, n)
+                rec = dict(body=body, ms=cuda_ms(lambda: K.fused_linear_act(*args), 200),
+                           plain_ms=cuda_ms(lambda: K.fused_linear_act_plain(*args), 20), bound_ms=b_ms,
+                           bound_by=b_by, bound_image_gate_ms=bounds["image"][0], bound_row_gate_ms=bounds["row"][0],
+                           max_abs_err=errs[-1], grid=p.grid, units=p.units, library_ms=None,
+                           shape=f"x{tuple(y_in.shape)} w{tuple(w1.shape)} {str(dtype)[6:]}, gate fp32 "
+                                 f"{tuple(gate.shape)}")
+                recs[label] = rec
+                print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+                      f"gate a row an image {bounds['image'][0]:.4f}, a row a row {bounds['row'][0]:.4f}); plan: "
+                      f"{p.units} units on {p.grid} blocks of {p.groups} row groups x {p.tx} threads")
+    assert LIN1_PATH in recs, sorted(recs)
+    return recs
 
 
 def float32_k1_rows(errs):
@@ -876,11 +948,13 @@ def spread(a, b) -> str:
 REQUEST_MS = {}  # eager_vs_graph's times by request label
 
 
-def eager_vs_graph(pred, images, label, want):
+def eager_vs_graph(pred, images, label, want, traced=True):
     """Phase 4: one request of batch 8 through the eager serving program
     and through ``predict``'s CUDA graph, on the same generator: equal
-    outputs, each path's request time, trace and launch counts (``want``,
-    each kernel's launches a request), and the capture seconds."""
+    outputs, each path's request time, trace (unless ``traced`` is false:
+    a later phase's repeat of a phase-4 request on the same kernels and
+    shapes) and launch counts (``want``, each kernel's launches a request),
+    and the capture seconds."""
     from ladine_tpu_torch import kernels as K
 
     want = {k: want.get(k, 0) for k in KERNELS}
@@ -910,8 +984,9 @@ def eager_vs_graph(pred, images, label, want):
     check_outputs(graphed, BATCH)
     assert equal, (label, spread(graphed, eager))
     assert eager_counts == want and graph_counts == want, (label, eager_counts, graph_counts, want)
-    trace(lambda: eager_request(pred, images, EAGER_SEED), f"{label} eager")
-    trace(lambda: pred.predict(images, generator=generator(EAGER_SEED)), f"{label} graph")
+    if traced:
+        trace(lambda: eager_request(pred, images, EAGER_SEED), f"{label} eager")
+        trace(lambda: pred.predict(images, generator=generator(EAGER_SEED)), f"{label} graph")
     return graphed, graph_counts
 
 
@@ -930,7 +1005,7 @@ KERNELS = ("fused_linear_act", "flash_attention", "int8_linear_softplus", "int8_
            "int8_eps_fused_l34")
 
 
-def serve_int8(guidance, model, sched, images, name):
+def serve_int8(guidance, model, sched, images, name, traced=True):
     """One full-width request of batch 8 at an int8 operating point, on the
     same modules as the parity requests (quantization leaves them as they
     are); returns the launches of each kernel in that request."""
@@ -942,7 +1017,7 @@ def serve_int8(guidance, model, sched, images, name):
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _, counts = eager_vs_graph(pred, images, name, {**expected, "flash_attention": 5})
+    _, counts = eager_vs_graph(pred, images, name, {**expected, "flash_attention": 5}, traced)
     print(f"  {name}: DDIM-{pred.ddim_steps}; resident int8 weights made in {quant_s:.1f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     stages(pred, images, name)
@@ -1577,7 +1652,8 @@ def run_training(full):
     pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
     print(f"  (d) hand-off: (b)'s debiased EMA as a bf16 ConditionalModel in {time.perf_counter() - t0:.1f} s, "
           f"{gib_now()}")
-    eager_vs_graph(pred, images, "(d) hand-off parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    eager_vs_graph(pred, images, "(d) hand-off parity", {"fused_linear_act": 3000, "flash_attention": 5},
+                   traced=False)
     del pred, model
     seconds["(c, d)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1921,10 +1997,11 @@ def run_f5(sched, images):
     init_random_(model, torch.Generator(device="cuda").manual_seed(F5_SEED))
     assert model.lin1.linear.weight.shape == (5, 2, W["feature"])
     pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
-    eager_vs_graph(pred, images, "(a) guidance=False parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    eager_vs_graph(pred, images, "(a) guidance=False parity", {"fused_linear_act": 3000, "flash_attention": 5},
+                   traced=False)
     del pred
     for name in ("serving + use_int8_pallas", "serving + use_int8_pallas + pallas_fuse_ends"):
-        serve_int8(guidance, model, sched, images, name)
+        serve_int8(guidance, model, sched, images, name, traced=False)
     del model
     free_memory()
     train_members(guidance, sched, 1, (PER_MEMBER_HEAD,), False, "(a) one guidance-free member, fp32 Adam and EMA",
@@ -1951,7 +2028,8 @@ def run_encoder_archs(sched, images):
                                dtype=torch.bfloat16, arch="simple")
     init_random_(model, torch.Generator(device="cuda").manual_seed(11))
     pred = L.Predictor.from_preset("parity", guidance=guidance, model=model, sched=sched, mc_trials=20)
-    eager_vs_graph(pred, images, "(c) arch simple parity", {"fused_linear_act": 3000, "flash_attention": 5})
+    eager_vs_graph(pred, images, "(c) arch simple parity", {"fused_linear_act": 3000, "flash_attention": 5},
+                   traced=False)
     launches = {k: K.launch_counts[k] for k in KERNELS}
     del pred, model, guidance
     free_memory()
@@ -2011,11 +2089,12 @@ def check_phase10_shapes(entries):
 
     m, r, f_ = 5, 20 * BATCH, FULL_WIDTHS["feature"]
     f = rnd(m, r, f_)
+    f_img = f[:, :BATCH].contiguous()  # lin1's gate on the float chain: a row an image
     y_in = rnd(m, r, 2, lo=-2.0, hi=2.0, dtype=torch.bfloat16)
     w1 = rnd(m, 2, f_, lo=-0.7, hi=0.7, dtype=torch.bfloat16)
     a, c = rnd(m, f_, lo=0.5, hi=1.5), rnd(m, f_, lo=-0.5, hi=0.5)
-    held("fused_linear_act", f"lin1 K = 2 y_in{tuple(y_in.shape)} bf16, gate fp32",
-         K.fused_linear_act(y_in, w1, a, c, f), K.fused_linear_act_plain(y_in, w1, a, c, f), 2e-2)
+    held("fused_linear_act", f"lin1 K = 2 y_in{tuple(y_in.shape)} bf16, gate fp32 {tuple(f_img.shape)}",
+         K.fused_linear_act(y_in, w1, a, c, f_img), K.fused_linear_act_plain(y_in, w1, a, c, f_img), 2e-2)
     fb = f.to(torch.bfloat16)
     codes, xmax = K.int8_lin1(fb, y_in, w1, a, c)
     want_codes, want_max = K.int8_lin1_plain(fb, y_in, w1, a, c)
@@ -2138,6 +2217,7 @@ def stages(pred, images, label):
 
 # Device time by source in the traces: (label, a substring of the kernel's name)
 TRACE_SOURCES = (
+    ("K1 lin1 (small_k)", "fused_linear_small_k_kernel"),
     ("K1 fused_linear.cu", "fused_linear_"),
     ("K3 attention.cu", "attention_"),
     ("int8 quantizing pre-pass (K4, K5b)", "quantize_rows_kernel"),
@@ -2154,7 +2234,9 @@ def trace(request, label, top: int = 8):
     share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the rows read are its kernels, and the
+    # host's events (~7 a launch) cost seconds a parity request
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         request()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2289,9 +2371,10 @@ def mesh_evaluate(guidance, model, sched, images, labels, mesh=None):
 
 def mesh_train(guidance, sched, label, mesh=None, dtype=None):
     """(b): one full train step of two members from a fresh state (seeded),
-    with injected draws, then a second step timed; the first step's losses,
+    with injected draws, timed (a first call: over ``gloo`` on one card a
+    step's time is not a multi-card time); the step's losses,
     its parameters and first moments on each leaf's probe columns (rows and
-    columns this rank holds), the leaves' largest |mu|, ms a step and peak
+    columns this rank holds), the leaves' largest |mu|, ms of the step and peak
     GiB. ``dtype``: the members' compute dtype (the case's when None)."""
     from ladine_tpu_torch import kernels as K
     from ladine_tpu_torch.models import ConditionalModel
@@ -2313,8 +2396,11 @@ def mesh_train(guidance, sched, label, mesh=None, dtype=None):
     state = create_member_states(compute, gen, tx, 2, lowmem=lowmem, device="cuda", mesh=mesh, fsdp=plan)
     step = make_full_train_step(guidance, compute, tx, sched, 5, 2, head_indices=MESH_HEADS, mesh=mesh, fsdp=plan)
     n3 = K.launch_counts["flash_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     state, losses = step(state, images, labels, gen, t=t, noise=noise)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
     k3 = K.launch_counts["flash_attention"] - n3
     probes = {}
     for part, tensors in (("params", state.params), ("mu", state.opt_state["mu"])):
@@ -2325,11 +2411,6 @@ def mesh_train(guidance, sched, label, mesh=None, dtype=None):
             mine = (cols >= w.col0) & (cols < w.col0 + view.shape[1])
             probes[(part, k)] = (w.row0, cols[mine], view[:, (cols[mine] - w.col0).cuda()].float().cpu())
     mu_max = {k: float(v.float().abs().max()) for k, v in state.opt_state["mu"].items()}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, images, labels, gen, t=t, noise=noise)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     return {"losses": losses.cpu().numpy(), "probes": probes, "mu_max": mu_max, "k3": k3, "ms": ms,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "fsdp": sorted(plan)}
 
@@ -2356,7 +2437,7 @@ def mesh_reference():
             guidance = mesh_guidance(dtype)
         for label in mesh_cases(dtype):
             ref["train"][label] = r = mesh_train(guidance, sched, label)
-            print(f"  one process, {label}: losses {r['losses'].tolist()}, {r['ms']:.1f} ms a step, peak "
+            print(f"  one process, {label}: losses {r['losses'].tolist()}, {r['ms']:.1f} ms the step, peak "
                   f"{r['peak_gib']:.2f} GiB")
             if dtype == torch.bfloat16:
                 ref["witness"][label] = w = mesh_train(guidance, sched, label, dtype=torch.float64)
@@ -2530,7 +2611,7 @@ def run_mesh():
         print(f"    (c) evaluate_ensemble, fast + PGD, batch 8: {e['seconds']:.2f} s; launches {e['launches']}; "
               f"samples max |difference| {e['max_diff']:.2e}; bit-equal {e['bit_equal']}")
         for label, b in r["train"].items():
-            print(f"    {label}: {b['ms']:.1f} ms a step, peak {b['peak_gib']:.2f} GiB, K3 {b['k3']} a step; "
+            print(f"    {label}: {b['ms']:.1f} ms the step, peak {b['peak_gib']:.2f} GiB, K3 {b['k3']} a step; "
                   f"losses rel {b['loss_rel']:.2e}, params max |difference| {b['params_abs']:.2e}, first moments "
                   f"{b['mu_of_max']:.2e} of their leaf's largest; {b['fsdp_leaves']} leaves sharded over data")
             if "loss_rel_f64" in b:
@@ -2581,10 +2662,11 @@ def check_phase11_shapes(entries):
     held("fused_linear_act", f"lin2/lin3 {tuple(x.shape)} bf16", K.fused_linear_act(x, w, a, c, None),
          K.fused_linear_act_plain(x, w, a, c, None), 2e-2)
     f = rnd(m, r, f_)
+    f_img = f[:, :BATCH // 2].contiguous()  # lin1's gate: a row for each of the rank's images
     y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=bf16)
     w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=bf16)
-    held("fused_linear_act", f"lin1 K = 4 y_in{tuple(y_in.shape)} bf16, gate fp32",
-         K.fused_linear_act(y_in, w1, a, c, f), K.fused_linear_act_plain(y_in, w1, a, c, f), 2e-2)
+    held("fused_linear_act", f"lin1 K = 4 y_in{tuple(y_in.shape)} bf16, gate fp32 {tuple(f_img.shape)}",
+         K.fused_linear_act(y_in, w1, a, c, f_img), K.fused_linear_act_plain(y_in, w1, a, c, f_img), 2e-2)
     # the guidance's 197 tokens at (a)'s and (c)'s batch 4 a rank, (b1)'s
     # whole 30 and (b2)'s 15 a rank, in (b)'s two compute dtypes
     for dtype, batches, tol in ((bf16, (BATCH // 2, TRAIN_BATCH // 2, TRAIN_BATCH), 2e-2),
@@ -2895,8 +2977,8 @@ def check_phase12_shapes(entries):
     for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
         y_in = rnd(m, r, 2 * c_, lo=0.0, hi=1.0, dtype=dtype)
         w1 = rnd(m, 2 * c_, f_, lo=-0.5, hi=0.5, dtype=dtype)
-        args = (y_in, w1, a, c, feats)
-        held("fused_linear_act", f"lin1 K = 20 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32",
+        args = (y_in, w1, a, c, feats[:, :64].contiguous())  # the gate: a row an image
+        held("fused_linear_act", f"lin1 K = 20 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32 (5, 64, 64)",
              lambda: K.fused_linear_act(*args), lambda: K.fused_linear_act_plain(*args), args,
              [(2 * m * r * 2 * c_ * f_, rate[dtype])], tol)
         h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
@@ -3177,8 +3259,8 @@ def check_phase13_shapes(entries):
     for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
         y_in = rnd(m, r, 4, lo=0.0, hi=1.0, dtype=dtype)
         w1 = rnd(m, 4, f_, lo=-0.5, hi=0.5, dtype=dtype)
-        args = (y_in, w1, a, c, feats)
-        held("fused_linear_act", f"lin1 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32",
+        args = (y_in, w1, a, c, feats[:, :70].contiguous())  # the gate: a row an image
+        held("fused_linear_act", f"lin1 y_in{tuple(y_in.shape)} {str(dtype)[6:]}, gate fp32 (5, 70, 4096)",
              lambda: K.fused_linear_act(*args), lambda: K.fused_linear_act_plain(*args), args,
              [(2 * m * r * 4 * f_, rate[dtype])], tol)
         h = rnd(m, r, f_, lo=0.0, hi=2.0, dtype=dtype)
@@ -3218,6 +3300,82 @@ def check_phase13_shapes(entries):
              [(2 * m * r * f_ * f_, INT8_OP_PER_S), (2 * m * r * f_ * 2, FP32_FLOP_PER_S)], tol)
 
 
+# Phases 12 and 13 each run in a second process of this script beside the
+# first's phases (``chip_smoke.py --phase 12|13 OUT.json``): 13 beside 6 and
+# 7, 12 beside 9-11. Each shares the card with phases whose peaks leave it
+# room (phase 13's largest is a member's fp32 Adam step or the five members
+# at batch 70; phase 12's widths are 64); the kernels' timed checks of both
+# run in the first process once they have ended.
+CHILD_DIR = "_smoke_children"  # their output and launch counts, beside this script (gitignored)
+CHILD_FLAG = "--phase"
+CHILDREN = []  # the second processes started, stopped when the script ends
+
+
+def _die_with_parent():
+    """In a second process, before it runs: SIGTERM when its parent ends."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+
+
+def start_phase(phase: int) -> dict:
+    """Start phase 12 or 13 alone in a second process of this script, its
+    output into ``CHILD_DIR``; :func:`join_phase` prints it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, CHILD_DIR, f"phase{phase}")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), CHILD_FLAG, str(phase), base + ".json"],
+                                stdout=out, stderr=err, cwd=here, preexec_fn=_die_with_parent)
+    child = dict(phase=phase, proc=proc, base=base, t0=time.perf_counter())
+    CHILDREN.append(child)
+    return child
+
+
+def join_phase(child: dict) -> dict:
+    """Wait for a phase started by :func:`start_phase`, print its output
+    (standard error to standard error) and return its launches; raises if
+    it failed."""
+    rc = child["proc"].wait()
+    seconds = time.perf_counter() - child["t0"]
+    sys.stdout.flush()
+    with open(child["base"] + ".out") as f:
+        sys.stdout.write(f.read())
+    with open(child["base"] + ".err") as f:
+        sys.stderr.write(f.read())
+    sys.stdout.flush()
+    sys.stderr.flush()
+    if rc != 0:
+        raise AssertionError(f"phase {child['phase']}'s process failed with exit code {rc}")
+    with open(child["base"] + ".json") as f:
+        launches = json.load(f)
+    print(f"  phase {child['phase']}'s process ended after {seconds:.0f} s")
+    return launches
+
+
+def stop_children() -> None:
+    """Stop the second processes still running and remove their output."""
+    for child in CHILDREN:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+    if CHILDREN:
+        shutil.rmtree(os.path.join(os.path.dirname(os.path.abspath(__file__)), CHILD_DIR), ignore_errors=True)
+
+
+def run_phase_alone(phase: int, out_path: str) -> int:
+    """``chip_smoke.py --phase 12|13 OUT.json``: that phase alone (the
+    kernels built by the process that started this one), its launches
+    written to ``OUT.json``."""
+    t0 = time.perf_counter()
+    launches = {12: run_digits_phase, 13: run_results_phase}[phase]()
+    print(f"  phase {phase} in {time.perf_counter() - t0:.0f} s; launches {launches}")
+    with open(out_path, "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available: this script runs only on an NVIDIA card")
@@ -3225,12 +3383,16 @@ def main() -> int:
     if not os.path.isdir(os.path.join(here, "ladine_tpu_torch")):
         return fail(f"the ladine_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, here)
+    if len(sys.argv) == 4 and sys.argv[1] == CHILD_FLAG:
+        return run_phase_alone(int(sys.argv[2]), sys.argv[3])
     from ladine_tpu_torch.kernels import _build
 
     start = time.perf_counter()
     print("== phase 1: environment and build")
     card = gpu_line()
-    print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    disk = shutil.disk_usage(here)
+    print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; {disk.free / 2**30:.0f} GiB free "
+          f"of {disk.total / 2**30:.0f} on this script's disk")
     t0 = time.perf_counter()
     sources = sorted(n[:-3] for n in os.listdir(_build.CSRC_DIR) if n.endswith(".cu"))
     logs = _build.build(sources)
@@ -3245,11 +3407,16 @@ def main() -> int:
     launches, full = run_full_width()
     print(f"== phase 5: reference state dicts, save and load, the batcher (full width) [{time.perf_counter() - start:.0f} s]")
     artifact_launches = run_artifact_surface(**full)
+    print(f"== phase 13 starts in a second process, beside phases 6 and 7 [{time.perf_counter() - start:.0f} s]")
+    phase13 = start_phase(13)
     print(f"== phase 6: the AOT bundle: export_serving, ExportedPredictor, the batcher (full width) [{time.perf_counter() - start:.0f} s]")
     bundle_launches = run_bundles(**full)
     print(f"== phase 7: robust evaluation at full width (corruptions, PGD, three operating points; "
           f"the attacks) [{time.perf_counter() - start:.0f} s]")
     eval_launches = run_evaluation(**full)
+    print(f"== phase 13: the evidence pipeline at full width without Pillow: (a) the synthetic corpus, "
+          f"(b) run_results, (c) profile_serving; its process's output [{time.perf_counter() - start:.0f} s]")
+    results_launches = join_phase(phase13)
     print(f"== phase 8: training at full width (member steps fp32 and lowmem, the EMA, the hand-off, the ViT "
           f"and mapping trainers, the joint step, the GMM posterior) [{time.perf_counter() - start:.0f} s]")
     from ladine_tpu_torch import kernels as K
@@ -3265,6 +3432,8 @@ def main() -> int:
     sched, images = full["sched"], full["images"]
     full.clear()
     free_memory()
+    print(f"  phase 12 starts in a second process, beside phases 9-11 [{time.perf_counter() - start:.0f} s]")
+    phase12 = start_phase(12)
     t9 = time.perf_counter()
     seconds10 = {}
 
@@ -3305,25 +3474,17 @@ def main() -> int:
     print(f"  phase 11 in {time.perf_counter() - t11:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
           f"launches a rank {mesh_launches}")
     print(f"== phase 12: the 10-class real-data path at configs/digits.yml's widths: (a) run_digits, (b) the int8 "
-          f"test rows, (c) the bf16 path [{time.perf_counter() - start:.0f} s]")
+          f"test rows, (c) the bf16 path; its process's output [{time.perf_counter() - start:.0f} s]")
+    digits_launches = join_phase(phase12)
     free_memory()
-    t12 = time.perf_counter()
-    digits_launches = run_digits_phase()
     t = time.perf_counter()
     print("  phase 12's kernels against their plain versions at the digits shapes (not counted)")
     check_phase12_shapes(entries)
-    print(f"  phase 12 in {time.perf_counter() - t12:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
-          f"launches {digits_launches}")
-    print(f"== phase 13: the evidence pipeline at full width without Pillow: (a) the synthetic corpus, "
-          f"(b) run_results, (c) profile_serving [{time.perf_counter() - start:.0f} s]")
-    free_memory()
-    t13 = time.perf_counter()
-    results_launches = run_results_phase()
+    print(f"  phase 12's shape checks in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     print("  phase 13's kernels against their plain versions at the batch-70 shapes (not counted)")
     check_phase13_shapes(entries)
-    print(f"  phase 13 in {time.perf_counter() - t13:.0f} s (the shape checks {time.perf_counter() - t:.1f} s); "
-          f"launches {results_launches}")
+    print(f"  phase 13's shape checks in {time.perf_counter() - t:.1f} s")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
         e["artifact_launches"] = artifact_launches.get(e["name"], 0)
@@ -3349,4 +3510,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -11,22 +11,48 @@
 // launch covers all members. Five bodies, chosen by the wrapper from the
 // shape and dtype (kernels/fused_linear.py::plan):
 //
-// small_k (K <= 16, both dtypes; lin1 up to 8 classes). An outer product and an elementwise
-// pass. Its gate mult is the encoder's features, fp32 as flax's last
-// BatchNorm leaves them (the TPU kernel multiplies by them in fp32), so beside
-// bf16 x and w it reads mult in fp32: at the path's shape (M = 5, R = 160,
-// N = 4096) it moves 20.0 MB (mult read, out written, w, a, c) and does 26
-// MFLOP, so the bytes bound it at 0.0060 ms on 3.35 TB/s. Each thread
-// computes 8 consecutive n of one row of one member (a flat index over
-// M x R x N/8, so the member loop is in the grid): w's K x 8 slice and x's K
-// values in registers, the K sum in fp32, mult read and out written as
-// 16-byte vectors (element by element where N % 8 != 0 or a pointer is not
-// 16-byte aligned). On the path mult comes from device memory (lin2 and lin3
-// stream 168 MB through L2 every step), so one row a thread keeps the most
-// loads of it in flight: 4 rows a thread, with w, a and c read once for them,
-// was faster with mult in L2 and slower on the path.
+// small_k (K <= 32, both dtypes; lin1 up to 16 classes, K = 4 at 2). An
+// outer product and an elementwise pass. Its gate mult is the encoder's
+// features, fp32 as flax's last BatchNorm leaves them (the TPU kernel
+// multiplies by them in fp32), so beside bf16 x and w it reads mult in fp32.
+// The gate may be one row an image: mult (M, P, N) with P dividing R gates
+// row r by its row r % P, the reverse chain's trial-major rows (r = t P + i
+// for trial t of image i); P = R is a gate a row. What bounds it: at the
+// path's shape (M = 5, R = 160 = 20 trials x 8 images, N = 4096) it writes
+// 6.55 MB in bf16 and reads 0.66 MB of gate (one row an image), 0.16 MB of
+// w and 0.16 MB of a and c: 7.5 MB, 0.0023 ms on 3.35 TB/s (float32: 14.3 MB,
+// 0.0043 ms; with a gate a row, 20.0 MB in bf16, 0.0060 ms). At K <= 32 an
+// output costs 2K FLOP against 2-4 bytes written, far below the ~300
+// operations a byte where tensor cores would pay, so they do not help: the
+// stores, and the ~40 instructions of softplus an output (expf, log1pf),
+// bound it. Its design:
+//  - A block owns one member, a strip of 8 tx columns (tx threads across,
+//    8 consecutive columns a thread, 128 / tx row groups) and a run of rows
+//    in image-major order (q = i T + t, T = R / P trials), so its rows share
+//    gate rows: each row group walks a contiguous run of q, loads an image's
+//    8 gate values once (the next image's one row ahead) and reuses them
+//    across its trials.
+//  - w's strip, a and c are loaded once a block: w in registers at K <= 4
+//    (the path's K = 2 and 4), else as fp32 in shared memory; the block's x
+//    rows (at most SK_X_FLOATS values) are staged once in shared memory as
+//    fp32 and read as broadcasts.
+//  - Stores as 16-byte vectors, a warp's 32 side by side (element by
+//    element where N % 8 != 0 or a pointer is off 16 bytes). Staging each
+//    round of rows in shared memory and writing it with TMA bulk copies
+//    (cp.async.bulk, one a row) was slower at every shape timed (PERF.md).
+//  - The grid is kernels/fused_linear.py::small_k_plan, a function of the
+//    shape and the 132 SMs: (member, strip) pairs times row runs, at most
+//    four blocks of 128 threads an SM (128 registers a thread), so every
+//    block is resident at once;
+//    a block walks units b, b + grid, ... where there are more. No 64-bit
+//    division: a thread divides once (32 bits) to find its first row.
+//  - The arithmetic of the body it replaced: the K sum in fp32 in k order
+//    with fmaf, softplus(z a + c), then x gate in fp32, one rounding to the
+//    output dtype. Deterministic: no atomics.
 //
-// wgmma (K > 16, bf16, K and N multiples of 8, 16-byte aligned pointers: the
+// The GEMM bodies below read a gate a row (P = R).
+//
+// wgmma (K > 32, bf16, K and N multiples of 8, 16-byte aligned pointers: the
 // shapes a TMA tensor map describes; lin2 and lin3, K = N = 4096, the
 // `_kernel` body of ladine_tpu/kernels/fused_linear.py:66). What bounds it: at R = 160 rows a member (batch 8 x 20 trials) the call reads each
 // member's 4096 x 4096 weight once, 168 MB (0.050 ms at 3.35 TB/s; 0.054 ms
@@ -76,8 +102,8 @@
 // but the rate at which device memory serves each block's 256-byte row
 // segments (chip_smoke.py phase 2 times it beside torch.bmm).
 //
-// mma (K > 16, bf16, the shapes wgmma does not take: K or N not a multiple
-// of 8 (lin1 at 10 classes: K = 20), a pointer off 16 bytes). Tiles of 160
+// mma (K > 32, bf16, the shapes wgmma does not take: K or N not a multiple
+// of 8 (lin1 at 17 classes: K = 34), a pointer off 16 bytes). Tiles of 160
 // rows x 128 columns, a cluster of 2 blocks splitting K in two halves for
 // one tile, the partial fp32 tiles summed through distributed shared memory
 // before the epilogue; 8 warps of 80 rows x 32 columns; K streams in steps
@@ -85,7 +111,7 @@
 // shared memory by ldmatrix (.trans for w's row-major K x N tile) into
 // mma.sync.m16n8k16. The epilogue runs in registers on the accumulator
 // fragments (a, c, softplus, mult, bf16 store): no shared C tile. Its gate
-// mult is bf16 or fp32 (lin1 above 8 classes leaves small_k for a GEMM body
+// mult is bf16 or fp32 (lin1 above 16 classes leaves small_k for a GEMM body
 // with the fp32 features as its gate, read in fp32 as the TPU kernel reads
 // them). Ragged R, N and K are zero-filled; its tiles are staged element
 // by element (the shapes that would move as 16-byte vectors take wgmma).
@@ -123,7 +149,7 @@
 //    (examples/kernel_ab.py reports both).
 // It does not depend on torch's TF32 flags, which the port keeps off.
 //
-// simt (K > 16, fp32, the shapes tf32x3 does not take: K or N off 4, a
+// simt (K > 32, fp32, the shapes tf32x3 does not take: K or N off 4, a
 // pointer off 16 bytes, K up to SIMT_MAX_K, where it measured faster).
 // 64 x 64 tiles of 128 threads, 8 x 4 fp32 FMA
 // outputs each, a 2-stage cp.async ring and the epilogue from a shared fp32
@@ -143,7 +169,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace bf16mma;
 
-enum Body { SMALL_K = 0, MMA = 1, SIMT = 2 };
+enum Body { MMA = 1, SIMT = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -214,7 +240,19 @@ __device__ __forceinline__ void k_loop(int nk, Load&& load, Multiply&& multiply)
 
 // ---- small_k ----------------------------------------------------------------
 
-constexpr int MAX_SMALL_K = 16, SK_THREADS = 256;
+namespace sk {
+constexpr int MAX_K = 32, THREADS = 128, VEC = 8;  // 8 consecutive columns a thread
+constexpr int REG_K = 4;                           // K up to this: w's strip in registers
+constexpr int X_FLOATS = 4096;                     // a unit's x rows, fp32 in shared memory
+constexpr int W_FLOATS = 8192;                     // w's strip above REG_K, fp32 in shared memory
+}  // namespace sk
+
+// kernels/fused_linear.py::small_k_plan: tx threads across a strip of 8 tx
+// columns, strips of N, splits row runs of each (member, strip) pair,
+// units = M x strips x splits, run by the grid's blocks in turn
+struct SkPlan {
+  int tx, strips, splits, units;
+};
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
   float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
@@ -243,60 +281,121 @@ __device__ __forceinline__ void load8_masked(const T* p, float* v, int valid, bo
   for (int e = 0; e < 8; ++e) v[e] = e < valid ? to_f(p[e]) : 0.f;
 }
 
-template <typename T, typename MT>
-__global__ void __launch_bounds__(SK_THREADS)
-fused_linear_small_k_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            const float* __restrict__ a, const float* __restrict__ c,
-                            const MT* __restrict__ mult, T* __restrict__ out, int M, int R, int K,
-                            int N, bool vec) {
-  const int nv = (N + 7) / 8;
-  const long long i = (long long)blockIdx.x * SK_THREADS + threadIdx.x;
-  if (i >= (long long)M * R * nv) return;
-  const int n0 = (int)(i % nv) * 8, valid = min(8, N - n0);
-  const long long mr = i / nv;  // m * R + r
-  const int m = (int)(mr / R);
+// KR: w's strip in registers (K <= KR = REG_K) or in shared memory (KR =
+// MAX_K). Shared memory: w's strip (KR = MAX_K: K x 8 tx fp32), then the
+// unit's x rows (rows x K fp32).
+template <typename T, typename MT, int KR>
+__global__ void __launch_bounds__(sk::THREADS, 4)
+fused_linear_small_k_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ a,
+                            const float* __restrict__ c, const MT* __restrict__ mult, T* __restrict__ out, int R,
+                            int P, int K, int N, bool vec, SkPlan p) {
+  extern __shared__ __align__(16) float sk_smem[];
+  const int tx = p.tx, groups = sk::THREADS / tx, bn = sk::VEC * tx;
+  const int lane = threadIdx.x % tx, g = threadIdx.x / tx;
+  const int trials = R / P;  // rows r = t P + i: trial t of image i
+  float* ws = sk_smem;                              // K x bn (KR = MAX_K)
+  float* xs = ws + (KR == sk::MAX_K ? K * bn : 0);  // the unit's rows x K
+  const int base = R / p.splits, rem = R % p.splits;
 
-  float xv[MAX_SMALL_K];
-#pragma unroll
-  for (int k = 0; k < MAX_SMALL_K; ++k) xv[k] = k < K ? to_f(x[mr * K + k]) : 0.f;
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const T* wm = w + (size_t)m * K * N + n0;
-#pragma unroll
-  for (int k = 0; k < MAX_SMALL_K; ++k) {
-    if (k >= K) break;
-    float wv[8];
-    load8_masked(wm + (size_t)k * N, wv, valid, vec);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = fmaf(xv[k], wv[e], acc[e]);
-  }
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int pair = u / p.splits, split = u - pair * p.splits;
+    const int m = pair / p.strips, col0 = (pair - m * p.strips) * bn;
+    const int q0 = split * base + min(split, rem), L = base + (split < rem ? 1 : 0);
+    const int n0 = col0 + sk::VEC * lane, valid = min(sk::VEC, N - n0);  // valid <= 0: past N
+    // row group g's run [qa, qb) of the unit's image-major rows [q0, q0 + L)
+    const int qa = q0 + g * L / groups, qb = valid > 0 ? q0 + (g + 1) * L / groups : qa;
+    int i = qa / trials, t = qa - i * trials;
 
-  float av[8], cv[8], mv[8];
-  load8_masked(a + (size_t)m * N + n0, av, valid, vec);
-  load8_masked(c + (size_t)m * N + n0, cv, valid, vec);
-  const size_t o = (size_t)mr * N + n0;
-  if (mult != nullptr) load8_masked(mult + o, mv, valid, vec);
+    // constants of the strip, the first image's gate: loads in flight across the staging
+    float wr[KR == sk::REG_K ? sk::REG_K : 1][sk::VEC], av[sk::VEC], cv[sk::VEC], mv[sk::VEC];
+    if (qa < qb) {
+      if constexpr (KR == sk::REG_K) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    acc[e] = softplus(acc[e] * av[e] + cv[e]);
-    if (mult != nullptr) acc[e] *= mv[e];
-  }
-  if (vec) {
-    store8(out + o, acc);
-  } else {
+        for (int k = 0; k < sk::REG_K; ++k)
+          if (k < K) load8_masked(w + ((size_t)m * K + k) * N + n0, wr[k], valid, vec);
+      }
+      load8_masked(a + (size_t)m * N + n0, av, valid, vec);
+      load8_masked(c + (size_t)m * N + n0, cv, valid, vec);
+      if (mult != nullptr) load8_masked(mult + ((size_t)m * P + i) * N + n0, mv, valid, vec);
+    }
+    if constexpr (KR == sk::MAX_K) {
+      for (int j = threadIdx.x; j < K * bn; j += sk::THREADS) {
+        const int k = j / bn, n = col0 + (j - k * bn);
+        ws[j] = n < N ? to_f(w[((size_t)m * K + k) * N + n]) : 0.f;
+      }
+    }
+    for (int j = threadIdx.x; j < L; j += sk::THREADS) {
+      const int q = q0 + j, ii = q / trials, r = (q - ii * trials) * P + ii;
+      const T* xr = x + ((size_t)m * R + r) * K;
+      for (int k = 0; k < K; ++k) xs[j * K + k] = to_f(xr[k]);
+    }
+    __syncthreads();
+
+    for (int q = qa; q < qb; ++q) {
+      float mn[sk::VEC];  // the next row's image's gate, loaded a row ahead
+      const bool next = mult != nullptr && t + 1 == trials && q + 1 < qb;
+      if (next) load8_masked(mult + ((size_t)m * P + i + 1) * N + n0, mn, valid, vec);
+      const float* xr = xs + (q - q0) * K;
+      float acc[sk::VEC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < valid) out[o + e] = from_f<T>(acc[e]);
+      for (int k = 0; k < KR; ++k) {
+        if (k >= K) break;
+        float wv[sk::VEC];
+        if constexpr (KR == sk::REG_K) {
+#pragma unroll
+          for (int e = 0; e < sk::VEC; ++e) wv[e] = wr[k][e];
+        } else {
+          load8(ws + k * bn + sk::VEC * lane, wv);
+        }
+        const float xk = xr[k];
+#pragma unroll
+        for (int e = 0; e < sk::VEC; ++e) acc[e] = fmaf(xk, wv[e], acc[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < sk::VEC; ++e) {
+        acc[e] = softplus(acc[e] * av[e] + cv[e]);
+        if (mult != nullptr) acc[e] *= mv[e];
+      }
+      const size_t o = ((size_t)m * R + (size_t)t * P + i) * N + n0;
+      if (vec) {
+        store8(out + o, acc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < sk::VEC; ++e)
+          if (e < valid) out[o + e] = from_f<T>(acc[e]);
+      }
+      if (++t == trials) {
+        t = 0, ++i;
+        if (next) {
+#pragma unroll
+          for (int e = 0; e < sk::VEC; ++e) mv[e] = mn[e];
+        }
+      }
+    }
+    __syncthreads();  // the next unit restages x and w
   }
 }
 
-template <typename T, typename MT>
-int launch_small_k(const void* x, const void* w, const void* a, const void* c, const void* mult,
-                   void* out, int M, int R, int K, int N, bool vec, cudaStream_t s) {
-  long long threads = (long long)M * R * ((N + 7) / 8);
-  fused_linear_small_k_kernel<T, MT><<<(unsigned)((threads + SK_THREADS - 1) / SK_THREADS), SK_THREADS, 0, s>>>(
+// The small_k body's dynamic shared memory for a plan (mirrored by
+// kernels/fused_linear.py's SmallKPlan.smem_bytes): at most 48 KB
+inline int small_k_smem(int R, int K, const SkPlan& p) {
+  return 4 * ((K > sk::REG_K ? K * sk::VEC * p.tx : 0) + ((R + p.splits - 1) / p.splits * K + 3) / 4 * 4);
+}
+
+template <typename T, typename MT, int KR>
+int launch_small_k_as(const void* x, const void* w, const void* a, const void* c, const void* mult, void* out,
+                      int R, int P, int K, int N, bool vec, const SkPlan& p, int grid, cudaStream_t s) {
+  fused_linear_small_k_kernel<T, MT, KR><<<grid, sk::THREADS, small_k_smem(R, K, p), s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<T*>(out), M, R, K, N, vec);
+      static_cast<const float*>(c), static_cast<const MT*>(mult), static_cast<T*>(out), R, P, K, N, vec, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename MT>
+int launch_small_k(const void* x, const void* w, const void* a, const void* c, const void* mult, void* out, int R,
+                   int P, int K, int N, bool vec, const SkPlan& p, int grid, cudaStream_t s) {
+  return K <= sk::REG_K ? launch_small_k_as<T, MT, sk::REG_K>(x, w, a, c, mult, out, R, P, K, N, vec, p, grid, s)
+                        : launch_small_k_as<T, MT, sk::MAX_K>(x, w, a, c, mult, out, R, P, K, N, vec, p, grid, s);
 }
 
 // ---- mma (bf16) -------------------------------------------------------------
@@ -931,20 +1030,35 @@ int launch_simt(const void* x, const void* w, const void* a, const void* c, cons
 
 }  // namespace
 
-// body: 0 small_k (either dtype), 1 mma (bf16), 2 simt (fp32); mult_f32: mult
-// is fp32 beside bf16 x (small_k and mma); vec: small_k's and simt's 16-byte
-// vectors (mma stages element by element). Any other pairing is refused
-// with cudaErrorInvalidValue.
+// The small_k body (K <= 32) on the plan of kernels/fused_linear.py::small_k_plan
+// (tx, strips, splits, grid): mult (M, P, N) gates row r by its row r % P
+// (P divides R; P = R without a gate), in x's dtype or, with mult_f32, fp32
+// beside bf16 x; vec: 16-byte vectors (N % 8 == 0, aligned pointers). A plan
+// the kernel cannot run is refused with cudaErrorInvalidValue.
+extern "C" int fused_linear_small_k_launch(const void* x, const void* w, const void* a, const void* c,
+                                           const void* mult, void* out, int M, int R, int P, int K, int N,
+                                           int is_bf16, int mult_f32, int vec, int tx, int strips, int splits,
+                                           int grid, void* stream) {
+  const SkPlan p{tx, strips, splits, M * strips * splits};
+  const bool ok = K >= 1 && K <= sk::MAX_K && tx >= 1 && tx <= sk::THREADS && sk::THREADS % tx == 0 && P >= 1 &&
+                  R % P == 0 && splits >= 1 && (long long)strips * sk::VEC * tx >= N && grid >= 1 &&
+                  grid <= p.units && (R + splits - 1) / splits * K <= sk::X_FLOATS &&
+                  (K <= sk::REG_K || K * sk::VEC * tx <= sk::W_FLOATS) && (is_bf16 || !mult_f32);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && mult_f32)
+    return launch_small_k<bf16, float>(x, w, a, c, mult, out, R, P, K, N, vec != 0, p, grid, s);
+  if (is_bf16) return launch_small_k<bf16, bf16>(x, w, a, c, mult, out, R, P, K, N, vec != 0, p, grid, s);
+  return launch_small_k<float, float>(x, w, a, c, mult, out, R, P, K, N, vec != 0, p, grid, s);
+}
+
+// body: 1 mma (bf16), 2 simt (fp32); mult_f32: mult is fp32 beside bf16 x
+// (mma); vec: simt's 16-byte vectors (mma stages element by element). Any
+// other pairing is refused with cudaErrorInvalidValue.
 extern "C" int fused_linear_act_launch(const void* x, const void* w, const void* a, const void* c,
                                        const void* mult, void* out, int M, int R, int K, int N,
                                        int is_bf16, int mult_f32, int vec, int body, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == SMALL_K && K <= MAX_SMALL_K) {
-    if (is_bf16 && mult_f32)
-      return launch_small_k<bf16, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-    if (is_bf16) return launch_small_k<bf16, bf16>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-    return launch_small_k<float, float>(x, w, a, c, mult, out, M, R, K, N, vec != 0, s);
-  }
   if (body == MMA && is_bf16 && mult_f32)
     return launch_mma<float>(x, w, a, c, mult, out, M, R, K, N, s);
   if (body == MMA && is_bf16) return launch_mma<bf16>(x, w, a, c, mult, out, M, R, K, N, s);

@@ -5,8 +5,10 @@ JAX package vmaps over members and MC trials; here both axes are written
 out: the reverse chain runs on y of shape (M, K*B, C), rows ordered
 (trial, image), so each step is one eps call, three kernel launches, for
 the whole ensemble. The encoder features are computed once per (member,
-image) and repeated over the trials for lin1's gate, and the timestep gates
-and BatchNorms are folded once per chain for every timestep.
+image); the float chain passes them as they are, (M, B, F), and lin1's
+kernel gates row t*B + i by image i's row (``kernels/fused_linear.py``),
+while the int8 kernels read them repeated over the trials. The timestep
+gates and BatchNorms are folded once per chain for every timestep.
 
 The int8 variants (``use_int8_eps``, ``use_int8_pallas``, ``pallas_fuse_ends``,
 ``use_int8_encode``) keep that layout: the JAX package folds the trials into
@@ -99,9 +101,6 @@ def nested_ensemble_sample(
         f = int8_encode(model, x_flat, qenc).to(model.enc_lin3.weight.dtype)
     else:
         f = model.encode(x_flat)  # (M, B, F) float32
-    # materialized (the kernel reads it as lin1's gate): at B = 1 the reshape
-    # of the expanded view would stay a stride-0 view
-    f_rows = f.unsqueeze(1).expand(m, k, b, f.shape[-1]).reshape(m, k * b, f.shape[-1]).contiguous()
     yhat_rows = y0_hat_members.unsqueeze(1).expand(m, k, b, c).reshape(m, k * b, c)
     y_T_mean = torch.zeros_like(yhat_rows) if noise_prior else yhat_rows
     if noise is not None:
@@ -112,15 +111,19 @@ def nested_ensemble_sample(
 
     if use_int8_pallas or use_int8_eps:
         q = qmember if qmember is not None else quantize_member(model)
+        # the int8 kernels take the features a row: materialized, as at B = 1
+        # the reshape of the expanded view would stay a stride-0 view
+        f_rows = f.unsqueeze(1).expand(m, k, b, f.shape[-1]).reshape(m, k * b, f.shape[-1]).contiguous()
         impl = (int8_eps_pallas_fused if pallas_fuse_ends else int8_eps_pallas) \
             if use_int8_pallas else int8_eps
 
         def eps_fn(y, t):
             return impl(model, q, f_rows, y, t, yhat_rows, table).to(f.dtype)
     else:
+        f_gate = f.contiguous()  # lin1's gate, a row an image
 
         def eps_fn(y, t):
-            return model.eps(f_rows, y, t, yhat_rows, table)
+            return model.eps(f_gate, y, t, yhat_rows, table)
 
     if tau is None:
         out = p_sample_loop(eps_fn, y_T_mean, sched, generator, noise, sampler_table)

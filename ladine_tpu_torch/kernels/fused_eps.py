@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from ladine_tpu_torch.kernels.fused_linear import fused_linear_act
+from ladine_tpu_torch.kernels.fused_linear import SMALL_K, fused_linear_act
 
 _BN_EPS = 1e-5
 
@@ -45,17 +45,22 @@ def fold_table(model, t) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
 
 def fused_eps(model, f: torch.Tensor, y: torch.Tensor, t: int, y_hat: torch.Tensor,
               table=None) -> torch.Tensor:
-    """(M, R, F) features + (M, R, C) y_t + int t + (M, R, C) guidance ->
+    """(M, P, F) features + (M, R, C) y_t + int t + (M, R, C) guidance ->
     (M, R, C) eps, for a stacked ``models.conditional.ConditionalModel``;
     a model without guidance takes y_t alone into lin1 (K = C) and ignores
-    y_hat. ``table``: :func:`fold_table` over all timesteps, or None to fold
-    for t."""
+    y_hat. The features are a row each (P = R) or a row an image of the
+    trial-major rows (P dividing R: row r takes feature row r % P), which
+    lin1 reads as its gate; where lin1's K is past the small_k body's,
+    whose GEMM bodies read a gate a row, they are repeated to R rows here.
+    ``table``: :func:`fold_table` over all timesteps, or None to fold for t."""
     if table is None:
         (a1, c1), (a2, c2), (a3, c3) = fold_table(model, t)
     else:
         (a1, c1), (a2, c2), (a3, c3) = ((a[t], c[t]) for a, c in table)
     w1 = model.lin1.linear.weight
     y_in = model.lin1_input(y, y_hat).to(w1.dtype)
+    if f.shape[-2] != y_in.shape[-2] and y_in.shape[-1] > SMALL_K:
+        f = f.repeat(1, y_in.shape[-2] // f.shape[-2], 1)
     h = fused_linear_act(y_in, w1, a1, c1, mult=f)
     h = fused_linear_act(h, model.lin2.linear.weight, a2, c2)
     h = fused_linear_act(h, model.lin3.linear.weight, a3, c3)

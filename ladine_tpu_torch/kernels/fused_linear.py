@@ -12,8 +12,11 @@ kernel, or the wrapper raises. Both are implementations of one custom op
 (``kernels/_build.py``).
 
 The kernel has five bodies, chosen by shape and dtype (:func:`plan`):
-``small_k`` for K <= 16 in either dtype (lin1 up to 8 classes, K = 4 at 2:
-an outer product and an elementwise pass); ``wgmma`` for larger K in
+``small_k`` for K <= :data:`SMALL_K` in either dtype (lin1 up to 16
+classes, K = 4 at 2: an outer product and an elementwise pass, on the grid
+of :func:`small_k_plan`); it alone takes a gate of one row an image,
+``mult`` (M, P, N) with P dividing R, row r gated by row r % P (the reverse
+chain's trial-major rows, ``infer/engine.py``); ``wgmma`` for larger K in
 bfloat16 where K and N are multiples of 8 and every pointer is 16-byte
 aligned (lin2 and lin3, the shapes a TMA tensor map describes): a TMA ring
 fed by a producer warp, ``wgmma`` warpgroups of 64 rows x 128 columns and
@@ -30,7 +33,7 @@ x_hi w_hi + x_hi w_lo + x_lo w_hi on TF32 tensor cores (hi a value's top
 19 bits, lo the rest rounded to TF32), which holds float32's 1e-4 where one
 TF32 pass does not.
 ``mma`` takes the other bfloat16 shapes (K or N off 8, an unaligned
-pointer; lin1 above 8 classes, K = 20 at 10: ``mma.sync`` tiles of 160
+pointer; lin1 above 16 classes, K = 34 at 17: ``mma.sync`` tiles of 160
 rows x 128 columns, K split over a cluster pair of blocks); ``simt`` the
 other float32 shapes (K or N off 4, an unaligned pointer, and the small K
 where it was measured faster: the digits' K = 64). lin1's gate
@@ -51,9 +54,18 @@ from ladine_tpu_torch.kernels import _build
 
 _NAME = "fused_linear"
 _KERNEL = "fused_linear_act"
-SMALL_K = 16  # the largest K the small_k body takes
-_BODIES = {"small_k": 0, "mma": 1, "simt": 2}  # the codes of csrc/fused_linear.cu
+SMALL_K = 32  # the largest K the small_k body takes
+_BODIES = {"mma": 1, "simt": 2}  # the codes of csrc/fused_linear.cu's fused_linear_act_launch
 SMS = 132  # streaming multiprocessors of the H100 SXM: the wgmma body's most blocks
+# the small_k body (sk:: in csrc/fused_linear.cu): blocks of 128 threads, 8
+# columns a thread; w's strip in registers up to K = 4, else in shared
+# memory (at most SK_W_FLOATS fp32); a unit's x rows in shared memory (at
+# most SK_X_FLOATS fp32); at most four blocks an SM (128 registers a
+# thread), all resident at once: on an H100 this shape was faster than 256
+# x 2 and 512 x 1 at the path's K = 4 (R = 20, 160, 1400) and a little
+# slower at the digits' K = 20
+SK_THREADS, SK_VEC, SK_REG_K, SK_X_FLOATS, SK_W_FLOATS = 128, 8, 4, 4096, 8192
+SK_BLOCKS_PER_SM = 4
 TILE_ROWS, TILE_COLS, STEP_K = 192, 128, 64  # BM, BN, BK of the wgmma body (wg_cfg)
 TF32_STEP_K = 32  # BK of the tf32x3 body (tf_cfg): 128 bytes of float32 K, its tiles the wgmma body's
 # float32 K up to this stays on simt: on an H100 SXM at 700 W simt was the
@@ -148,15 +160,74 @@ def wgmma_tile(p: WgmmaPlan, tile: int) -> Tuple[int, int, int]:
             tile // p.row_tiles % p.col_tiles * TILE_COLS)
 
 
+class SmallKPlan(NamedTuple):
+    """A launch of the small_k body (``csrc/fused_linear.cu``): blocks of
+    SK_THREADS threads, ``tx`` across a strip of 8 tx columns and ``groups``
+    row groups; ``units`` = M x ``strips`` x ``splits`` (a member's strip,
+    its image-major rows cut into ``splits`` runs), run by ``grid`` blocks
+    in turn; ``smem_bytes`` of dynamic shared memory a block."""
+
+    tx: int
+    groups: int
+    strips: int
+    splits: int
+    units: int
+    grid: int
+    smem_bytes: int
+
+
+def small_k_plan(m: int, r: int, k: int, n: int) -> SmallKPlan:
+    """The small_k body's grid for M members of an (R, K) x (K, N) layer: a
+    pure function of the shape and the SMS. A strip is as wide as N allows up
+    to 512 columns (narrower above K = SK_REG_K, where w's strip must fit
+    SK_W_FLOATS). The rows of each (member, strip) are cut into as many runs
+    as fill SK_BLOCKS_PER_SM blocks an SM, each run at least a row a row
+    group, and into more where a run's x rows would pass SK_X_FLOATS. The
+    grid is at most SMS x SK_BLOCKS_PER_SM blocks, so every block is
+    resident at once."""
+    tx = 1
+    while tx < 64 and SK_VEC * tx < n:
+        tx *= 2
+    while k > SK_REG_K and tx > 1 and k * SK_VEC * tx > SK_W_FLOATS:
+        tx //= 2
+    groups, slots = SK_THREADS // tx, SMS * SK_BLOCKS_PER_SM
+    strips = -(-n // (SK_VEC * tx))
+    splits = max(1, min(slots // (m * strips), r // groups), -(-r // (SK_X_FLOATS // k)))
+    units = m * strips * splits
+    x_floats = -(-(-(-r // splits) * k) // 4) * 4
+    smem = 4 * ((k * SK_VEC * tx if k > SK_REG_K else 0) + x_floats)
+    return SmallKPlan(tx, groups, strips, splits, units, min(units, slots), smem)
+
+
+def small_k_runs(p: SmallKPlan, r: int, gate_rows: int, n: int) -> Iterator[Tuple[int, int, list, int, int]]:
+    """(block, member, rows, first column, end column) of each row group of
+    each unit, in the kernel's walk: unit u = (member, strip, split) runs on
+    block u % grid; its run of image-major rows q (q = i T + t, T = R /
+    gate_rows trials, row r = t gate_rows + i) is cut evenly over the row
+    groups, and ``rows`` lists a group's rows in its order."""
+    trials, bn = r // gate_rows, SK_VEC * p.tx
+    base, rem = divmod(r, p.splits)
+    for u in range(p.units):
+        pair, split = divmod(u, p.splits)
+        member, strip = divmod(pair, p.strips)
+        q0, size = split * base + min(split, rem), base + (split < rem)
+        for g in range(p.groups):
+            qa, qb = q0 + g * size // p.groups, q0 + (g + 1) * size // p.groups
+            yield (u % p.grid, member, [(q % trials) * gate_rows + q // trials for q in range(qa, qb)],
+                   strip * bn, min(strip * bn + bn, n))
+
+
 def fused_linear_act_plain(x, w, a, c, mult=None) -> torch.Tensor:
     """softplus((x @ w) * a + c) [* mult] with an fp32 product, in x.dtype.
 
     Leading (member) axes broadcast: x (..., R, K), w (..., K, N),
-    a/c (..., N), mult (..., R, N)."""
+    a/c (..., N), mult (..., P, N) with P dividing R: row r is gated by
+    mult's row r % P (P = R: a gate a row)."""
     z = torch.matmul(x.float(), w.float()) * a.float().unsqueeze(-2) + c.float().unsqueeze(-2)
     out = F.softplus(z)
     if mult is not None:
-        out = out * mult.float()
+        reps = x.shape[-2] // mult.shape[-2] if mult.shape[-2] else 1
+        out = out * (mult.repeat(*(1,) * (mult.dim() - 2), reps, 1) if reps > 1 else mult).float()
     return out.to(x.dtype)
 
 
@@ -165,6 +236,14 @@ def _lib():
     fn = lib.fused_linear_act_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _small_k_lib():
+    fn = _build.load(_NAME).fused_linear_small_k_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -194,8 +273,10 @@ def _check(x, w, a, c, mult):
     n = w.shape[2]
     if a.shape != (m, n) or c.shape != (m, n):
         raise ValueError(f"{_KERNEL}: a and c must be (M, N) = {(m, n)}")
-    if mult is not None and mult.shape != (m, r, n):
-        raise ValueError(f"{_KERNEL}: mult must be (M, R, N) = {(m, r, n)}")
+    if mult is not None and (mult.dim() != 3 or mult.shape[0] != m or mult.shape[2] != n
+                             or (mult.shape[1] != r and (mult.shape[1] == 0 or r % mult.shape[1]))):
+        raise ValueError(f"{_KERNEL}: mult must be (M, P, N) with P dividing R, (M, R, N) = {(m, r, n)}; "
+                         f"got {tuple(mult.shape)}")
     tensors = [x, w, a, c] + ([mult] if mult is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{_KERNEL}: all arguments must be on {x.device}")
@@ -234,14 +315,17 @@ def fused_linear_act(
 ) -> torch.Tensor:
     """softplus((x @ w) * a + c) [* mult] for every member at once.
 
-    x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N) or
-    None; x and w share one dtype (float32 or bfloat16), mult has it too or
-    is float32 (lin1, whose gate is the float32 features), at any K.
-    Returns (M, R, N) in x.dtype. On the card the kernel body follows from K,
-    N, the dtype and the pointers' alignment (:func:`plan`): small_k for K <=
-    16, else wgmma in bfloat16 and tf32x3 in float32 (mma and simt off the
-    tensor-map shapes, simt at float32 K up to SIMT_MAX_K). The op
-    ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
+    x: (M, R, K), w: (M, K, N), a/c: (M, N) float32, mult: (M, R, N), or
+    (M, P, N) with P dividing R (row r gated by mult's row r % P: a gate
+    row an image of the trial-major rows), or None; x and w share one dtype
+    (float32 or bfloat16), mult has it too or is float32 (lin1, whose gate
+    is the float32 features), at any K. Returns (M, R, N) in x.dtype. On the
+    card the kernel body follows from K, N, the dtype and the pointers'
+    alignment (:func:`plan`): small_k for K <= SMALL_K, else wgmma in
+    bfloat16 and tf32x3 in float32 (mma and simt off the tensor-map shapes,
+    simt at float32 K up to SIMT_MAX_K); only small_k takes P < R, and a
+    CUDA call of another body with P < R raises.
+    The op ``torch.ops.ladine_tpu_torch.fused_linear_act``."""
     return _op(x, w, a, c, mult)
 
 
@@ -268,9 +352,17 @@ def _launch(x, w, a, c, mult):
     ptrs = (x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
             None if mult is None else mult.data_ptr(), out.data_ptr())
     mult_f32 = int(mult is not None and mult.dtype != x.dtype)
+    gate_rows = r if mult is None else mult.shape[1]
+    if gate_rows != r and body != "small_k":
+        raise ValueError(f"{_KERNEL}: the {body} body takes a gate a row, (M, R, N) = {(m, r, n)}; "
+                         f"a gate of {gate_rows} rows is for small_k (K <= {SMALL_K})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if body in ("wgmma", "tf32x3"):
+        if body == "small_k":
+            p = small_k_plan(m, r, k, n)
+            err = _small_k_lib()(*ptrs, m, r, gate_rows, k, n, int(x.dtype == torch.bfloat16), mult_f32, int(vec),
+                                 p.tx, p.strips, p.splits, p.grid, stream)
+        elif body in ("wgmma", "tf32x3"):
             p = wgmma_plan(m, r, k, n, STEP_K if body == "wgmma" else TF32_STEP_K)
             work = torch.empty(p.work_bytes, dtype=torch.uint8, device=x.device) if p.work_bytes else None
             err = _wgmma_lib()(

@@ -199,12 +199,12 @@ def test_fused_linear_act_wgmma_body_is_deterministic(cuda, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-10-classes"])
+@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-17-classes"])
 def test_fused_linear_act_ragged_and_unaligned_take_the_mma_body(cuda, case):
     """Shapes a tensor map cannot describe stay on the mma body (staged
     element by element) and match the plain version."""
     m, r, k, n = {"ragged-K": (2, 33, 4100, 256), "ragged-N": (2, 33, 256, 4100), "unaligned": (2, 33, 256, 256),
-                  "lin1-10-classes": (5, 160, 20, 4096)}[case]
+                  "lin1-17-classes": (5, 160, 34, 4096)}[case]
     x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(23), m, r, k, n))
     x, w = x.bfloat16(), w.bfloat16()
     if case == "unaligned":  # x one element into its storage: 2 bytes off 16
@@ -272,7 +272,7 @@ def test_fused_linear_act_tf32x3_body_is_deterministic(cuda, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-9-classes", "digits", "k1028-n4",
+@pytest.mark.parametrize("case", ["ragged-K", "ragged-N", "unaligned", "lin1-17-classes", "digits", "k1028-n4",
                                   "k2048-n68"])
 def test_fused_linear_act_float32_bodies_by_the_plan(cuda, case):
     """float32 shapes a tensor map cannot describe (K or N off 4, a pointer
@@ -281,7 +281,7 @@ def test_fused_linear_act_float32_bodies_by_the_plan(cuda, case):
     end and 124 columns past N's; a ragged column tile); each matches the
     plain version at 1e-4."""
     m, r, k, n = {"ragged-K": (2, 33, 4098, 256), "ragged-N": (2, 33, 1028, 4098), "unaligned": (2, 33, 2048, 256),
-                  "lin1-9-classes": (5, 160, 18, 4096), "digits": (5, 640, 64, 64), "k1028-n4": (2, 9, 1028, 4),
+                  "lin1-17-classes": (5, 160, 34, 4096), "digits": (5, 640, 64, 64), "k1028-n4": (2, 9, 1028, 4),
                   "k2048-n68": (3, 200, 2048, 68)}[case]
     x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(41), m, r, k, n))
     if case == "unaligned":  # x one element into its storage: 4 bytes off 16
@@ -340,8 +340,8 @@ def test_fused_linear_act_small_k_body_takes_a_float32_gate(cuda, shape):
     torch.cuda.synchronize()
     assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
     _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
-    # above K = 16 the mma body takes the float32 gate too (F6)
-    x2, w2, a2, c2, mult2 = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(14), m, r, 32, n))
+    # above K = 32 the mma body takes the float32 gate too (F6)
+    x2, w2, a2, c2, mult2 = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(14), m, r, 34, n))
     x2, w2 = x2.bfloat16(), w2.bfloat16()
     _close(fused_linear_act(x2, w2, a2, c2, mult2), fused_linear_act_plain(x2, w2, a2, c2, mult2), 1e-2)
 
@@ -351,8 +351,9 @@ def test_fused_linear_act_small_k_body_takes_a_float32_gate(cuda, shape):
 @pytest.mark.parametrize("shape", [(5, 640, 64), (5, 160, 4096), (2, 9, 17)], ids=["digits", "path", "ragged-N"])
 def test_fused_linear_act_takes_a_float32_gate_above_k_16(cuda, shape, k):
     """F6: lin1 above 8 classes (K = 2C, 20 at the digits config's 10):
-    bf16 y_in and w1 with the float32 features as the gate leave small_k
-    for the mma body, which reads the gate in float32 and rounds once."""
+    bf16 y_in and w1 with the float32 features as the gate. K = 18-32 take
+    the small_k body (lin1 up to 16 classes), K = 64 the wgmma body; each
+    reads the gate in float32 and rounds once."""
     m, r, n = shape
     x, w, a, c, mult = (torch.from_numpy(v).to(cuda) for v in layer_inputs(np.random.default_rng(18), m, r, k, n))
     x, w = x.bfloat16(), w.bfloat16()
@@ -361,6 +362,58 @@ def test_fused_linear_act_takes_a_float32_gate_above_k_16(cuda, shape, k):
     torch.cuda.synchronize()
     assert launch_counts["fused_linear_act"] == 1 and out.dtype == torch.bfloat16
     _close(out, fused_linear_act_plain(x, w, a, c, mult), 1e-2)
+
+
+SMALL_K_CASES = {"path": (5, 160, 8, 4096), "ragged-N": (2, 9, 3, 17), "one-row": (1, 1, 1, 8),
+                 "digits": (5, 640, 64, 64), "batch-1": (5, 20, 1, 4096), "evidence": (5, 1400, 70, 4096)}
+
+
+def _small_k_inputs(cuda, rng, m, r, gate_rows, k, n, dtype):
+    """lin1's inputs: y_in and w1 in ``dtype``, a and c, and the float32
+    features as the gate a row an image (M, P, N) and repeated over the
+    trial-major rows (M, R, N)."""
+    x, w, a, c, _ = (torch.from_numpy(v).to(cuda) for v in layer_inputs(rng, m, r, k, n))
+    f = torch.from_numpy(rng.standard_normal((m, gate_rows, n)).astype(np.float32)).to(cuda)
+    rows = f.unsqueeze(1).expand(m, r // gate_rows, gate_rows, n).reshape(m, r, n).contiguous()
+    return x.to(dtype), w.to(dtype), a, c, f, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 16, 20, 32])
+@pytest.mark.parametrize("case", list(SMALL_K_CASES))
+def test_small_k_body_with_both_gate_layouts_matches_plain(cuda, dtype, k, case):
+    """The small_k body (K <= 32) against its plain version at the path's
+    shape, ragged N, one row, the digits' and the batch-1 and evidence
+    shapes, with the gate a row an image and a row a row, and without one;
+    the two gate layouts give the same bits, and a second launch too."""
+    m, r, gate_rows, n = SMALL_K_CASES[case]
+    x, w, a, c, f, rows = _small_k_inputs(cuda, np.random.default_rng(50), m, r, gate_rows, k, n, dtype)
+    assert fl_mod.plan(dtype, k, n, True)[0] == "small_k"
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    outs = []
+    for g in (f, rows, None):
+        launch_counts.clear()
+        out = fused_linear_act(x, w, a, c, g)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_linear_act"] == 1 and out.dtype == dtype and out.shape == (m, r, n)
+        _close(out, fused_linear_act_plain(x, w, a, c, g), tol)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], fused_linear_act(x, w, a, c, f))
+
+
+@pytest.mark.cuda
+def test_small_k_gate_rows_are_held_to_the_body_that_takes_them(cuda):
+    """A gate of P < R rows goes to small_k only: another body raises, and so
+    does a P that does not divide R; nothing falls back."""
+    x, w, a, c, f, _ = _small_k_inputs(cuda, np.random.default_rng(52), 2, 12, 3, 40, 64, torch.bfloat16)
+    assert fl_mod.plan(torch.bfloat16, 40, 64, True)[0] == "wgmma"
+    with pytest.raises(ValueError, match="takes a gate a row"):
+        fused_linear_act(x, w, a, c, f)
+    x4, w4 = x[..., :4].contiguous(), w[:, :4].contiguous()
+    with pytest.raises(ValueError, match="mult must be"):
+        fused_linear_act(x4, w4, a, c, torch.zeros(2, 5, 64, device=cuda))
 
 
 INT8_SHAPES = [(5, 160, 4096, 4096), (5, 20, 256, 200), (2, 23, 96, 80), (1, 70, 512, 136),

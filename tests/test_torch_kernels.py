@@ -10,6 +10,7 @@ tests/test_torch_cuda.py.
 """
 
 import collections
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -146,39 +147,46 @@ BF16, F32 = torch.bfloat16, torch.float32
         (F32, 4096, 4096, True, ("tf32x3", True)),  # lin2 / lin3 of the fp32 predictor
         (BF16, 2, 4096, True, ("small_k", True)),
         (BF16, 16, 4096, True, ("small_k", True)),
-        (BF16, 17, 4096, True, ("mma", False)),  # K not a multiple of 8
+        (BF16, 17, 4096, True, ("small_k", True)),  # K off 8: small_k up to SMALL_K = 32
         (F32, 16, 17, True, ("small_k", False)),  # N not a multiple of 8
         (BF16, 4096, 4096, False, ("mma", False)),  # a pointer off 16 bytes
         (BF16, 4, 4096, False, ("small_k", False)),
-        (BF16, 24, 17, True, ("mma", False)),
-        (F32, 24, 17, True, ("simt", False)),
+        (BF16, 24, 17, True, ("small_k", False)),
+        (F32, 24, 17, True, ("small_k", False)),
         (BF16, 256, 200, True, ("wgmma", True)),
         (F32, 256, 200, True, ("simt", True)),  # float32 K <= SIMT_MAX_K stays on simt
         (BF16, 72, 64, True, ("wgmma", True)),
         (F32, 40, 12, True, ("simt", True)),  # fp32's vector is 4 wide
-        (BF16, 20, 64, True, ("mma", False)),  # lin1 at 10 classes (digits): K = 20
-        (F32, 20, 64, True, ("simt", True)),
+        (BF16, 20, 64, True, ("small_k", True)),  # lin1 at 10 classes (digits): K = 20
+        (F32, 20, 64, True, ("small_k", True)),
         (BF16, 64, 64, True, ("wgmma", True)),  # digits lin2 / lin3
         (F32, 64, 64, True, ("simt", True)),  # the digits' (and the GMM check's) K: simt was faster
         # what stays on mma: K or N off the 16-byte vector, a pointer off 16 bytes
         (BF16, 4100, 4096, True, ("mma", False)),
         (BF16, 4096, 4100, True, ("mma", False)),
-        (BF16, 24, 8, True, ("wgmma", True)),  # the smallest K a tensor map takes above small_k
-        (BF16, 24, 8, False, ("mma", False)),
+        (BF16, 24, 8, True, ("small_k", True)),
+        (BF16, 24, 8, False, ("small_k", False)),
         (BF16, 64, 64, False, ("mma", False)),
-        (BF16, 18, 4096, True, ("mma", False)),  # lin1 at 9 classes
+        (BF16, 18, 4096, True, ("small_k", True)),  # lin1 at 9 classes
         # what stays on simt: float32 K or N off 4, a pointer off 16 bytes
         (F32, 4098, 4096, True, ("simt", False)),
         (F32, 4096, 4098, True, ("simt", False)),
         (F32, 4096, 4096, False, ("simt", False)),
-        (F32, 18, 4096, True, ("simt", False)),  # lin1 at 9 classes
-        (F32, 20, 4096, False, ("simt", False)),
+        (F32, 18, 4096, True, ("small_k", True)),  # lin1 at 9 classes
+        (F32, 20, 4096, False, ("small_k", False)),
         (F32, 16, 4096, True, ("small_k", True)),
-        (F32, 17, 8, True, ("simt", False)),
+        (F32, 17, 8, True, ("small_k", True)),
         (F32, 1024, 4096, True, ("simt", True)),  # SIMT_MAX_K
         (F32, 1028, 4096, True, ("tf32x3", True)),
         (F32, 1028, 4, True, ("tf32x3", True)),  # the smallest K and N tf32x3 takes
         (F32, 1028, 4096, False, ("simt", False)),
+        # above SMALL_K = 32 (lin1 above 16 classes)
+        (BF16, 40, 8, True, ("wgmma", True)),  # the smallest K a tensor map takes above small_k
+        (BF16, 34, 4096, True, ("mma", False)),  # lin1 at 17 classes: K off 8
+        (F32, 34, 4096, True, ("simt", False)),
+        (F32, 36, 64, True, ("simt", True)),
+        (BF16, 32, 4096, True, ("small_k", True)),  # lin1 at 16 classes
+        (F32, 32, 4096, True, ("small_k", True)),
     ],
 )
 def test_fused_linear_act_plan_is_a_function_of_shape_dtype_and_alignment(dtype, k, n, aligned, want):
@@ -196,6 +204,121 @@ def test_fused_linear_act_plan_ignores_the_row_count(r, dtype):
     assert (m, r_) == (5, r)
     assert fl_mod.plan(dtype, k, n, True) == ("wgmma" if dtype == BF16 else "tf32x3", True)
     assert fl_mod.plan(dtype, 4, n, True) == ("small_k", True)
+
+
+# a gate of one row an image: (M, P, N) with P dividing R, row r = t P + i
+# (trial t, image i) gated by row i = r % P
+
+
+@pytest.mark.parametrize("gate_rows, ok", [(12, True), (6, True), (3, True), (1, True), (5, False), (7, False),
+                                           (24, False), (0, False)])
+def test_fused_linear_act_takes_a_gate_of_p_rows_dividing_r(gate_rows, ok):
+    """``_check`` takes mult (M, P, N) where P divides R (P = R: a gate a
+    row) and raises ValueError otherwise."""
+    x, w, a, c, _ = (j2t(v) for v in layer_inputs(np.random.default_rng(40), 2, 12, 4, 8))
+    mult = torch.zeros(2, gate_rows, 8)
+    if ok:
+        assert fl_mod._check(x, w, a, c, mult) == (2, 12, 4, 8)
+    else:
+        with pytest.raises(ValueError, match="mult must be"):
+            fl_mod._check(x, w, a, c, mult)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("b, trials, k", [(3, 2, 4), (8, 20, 4), (1, 20, 4), (3, 4, 20), (5, 3, 2)])
+def test_plain_per_image_gate_equals_the_repeated_gate_bit_for_bit(dtype, b, trials, k):
+    """The plain version with the gate a row an image (M, B, N) gives the
+    bits of the gate repeated over the trial-major rows (row t B + i takes
+    image i: the engine's old ``f_rows``); under the map r // trials (the
+    image-major order) it would not."""
+    rng = np.random.default_rng(41)
+    x, w, a, c, _ = (j2t(v) for v in layer_inputs(rng, 2, b * trials, k, 24))
+    x, w = x.to(dtype), w.to(dtype)
+    f = j2t(rng.standard_normal((2, b, 24)).astype(np.float32))
+    rows = f.unsqueeze(1).expand(2, trials, b, 24).reshape(2, trials * b, 24).contiguous()
+    got = fused_linear_act(x, w, a, c, f)
+    assert torch.equal(got, fused_linear_act_plain(x, w, a, c, rows))
+    assert torch.equal(got, fused_linear_act(x, w, a, c, rows))
+    if b >= 3 and trials >= 2:
+        wrong = f.repeat_interleave(trials, dim=1)  # row r gated by image r // trials
+        assert not torch.equal(got, fused_linear_act_plain(x, w, a, c, wrong))
+
+
+SMALL_K_SHAPES = [
+    # (M, R, P, K, N): the path at batch 1, 8 and 70 (20 trials), the digits'
+    # lin1 (K = 20, 64 images x 10 trials), K = 32, a gate a row, ragged N, one row
+    (5, 20, 1, 4, 4096), (5, 160, 8, 4, 4096), (5, 1400, 70, 4, 4096), (5, 160, 8, 2, 4096),
+    (5, 640, 64, 20, 64), (5, 160, 8, 32, 4096), (5, 160, 160, 4, 4096), (2, 9, 3, 16, 17),
+    (1, 1, 1, 4, 8), (3, 4100, 4100, 4, 64), (1, 70, 7, 32, 4100),
+]
+
+
+@pytest.mark.parametrize("shape", SMALL_K_SHAPES, ids=str)
+def test_small_k_plan_covers_every_output_once_within_the_sm_count(shape):
+    """Every output (member, row, column) is written by exactly one row
+    group's run; the grid is at most SK_BLOCKS_PER_SM blocks an SM (all
+    resident at once) and every block has a unit; a unit's x rows and w's
+    strip fit their shared memory."""
+    m, r, gate_rows, k, n = shape
+    p = fl_mod.small_k_plan(m, r, k, n)
+    assert p == fl_mod.small_k_plan(m, r, k, n)
+    assert 1 <= p.grid <= fl_mod.SMS * fl_mod.SK_BLOCKS_PER_SM and p.grid <= p.units
+    assert p.tx * p.groups == fl_mod.SK_THREADS and p.units == m * p.strips * p.splits
+    assert -(-r // p.splits) * k <= fl_mod.SK_X_FLOATS
+    assert k <= fl_mod.SK_REG_K or k * fl_mod.SK_VEC * p.tx <= fl_mod.SK_W_FLOATS
+    assert p.smem_bytes <= 48 * 1024  # no opt-in past the default dynamic shared memory
+    cover = np.zeros((m, r, n), dtype=int)
+    blocks = set()
+    for block, member, rows, col0, col1 in fl_mod.small_k_runs(p, r, gate_rows, n):
+        blocks.add(block)
+        assert col0 < col1 <= n
+        cover[member, rows, col0:col1] += 1
+    assert (cover == 1).all()
+    assert blocks == set(range(p.grid))
+
+
+@pytest.mark.parametrize("r, gate_rows", [(20, 1), (160, 8), (1400, 70)])
+def test_small_k_plan_fills_the_card_and_reads_each_gate_row_once_a_group(r, gate_rows):
+    """At the path's R = 20, 160 and 1400 (batch 1, 8, 70 at 20 trials) every
+    SM takes a block of 4 warps, and each row group walks its rows image by
+    image: it loads an image's gate row once and reuses it over the trials."""
+    p = fl_mod.small_k_plan(5, r, 4, 4096)
+    assert p.grid >= fl_mod.SMS and (p.tx, p.groups) == (64, 2)
+    for _, _, rows, _, _ in fl_mod.small_k_runs(p, r, gate_rows, 4096):
+        images = [row % gate_rows for row in rows]
+        assert images == sorted(images)  # a change of image never comes back
+    loads = sum(len({row % gate_rows for row in rows}) for _, _, rows, _, _ in fl_mod.small_k_runs(p, r, gate_rows, 4096))
+    assert loads <= 2 * 5 * p.strips * max(gate_rows, p.splits * p.groups)
+
+
+@pytest.mark.parametrize("k", [4, 20, 34])
+def test_fused_eps_takes_the_features_a_row_an_image(k, monkeypatch):
+    """fused_eps with the features a row an image (M, B, F) gives the bits
+    of the features repeated over the trial-major rows; lin1 gets them as
+    they are where small_k takes its K, and repeated to R rows past it (the
+    GEMM bodies read a gate a row)."""
+    fe_mod = importlib.import_module("ladine_tpu_torch.kernels.fused_eps")
+    c = k // 2
+    model = ConditionalModel(2, 12, 16, 16, c, 7, device="cpu")
+    rng = np.random.default_rng(42)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.copy_(torch.from_numpy(rng.standard_normal(prm.shape).astype(np.float32)) * 0.3)
+        for name, buf in model.named_buffers():
+            if "running_var" in name:
+                buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
+    b, trials = 3, 2
+    f = j2t(rng.standard_normal((2, b, 16)).astype(np.float32))
+    f_rows = f.unsqueeze(1).expand(2, trials, b, 16).reshape(2, trials * b, 16).contiguous()
+    y = j2t(rng.standard_normal((2, trials * b, c)).astype(np.float32))
+    y_hat = j2t(rng.dirichlet([1] * c, size=(2, trials * b)).astype(np.float32))
+    gates = []
+    real = fe_mod.fused_linear_act
+    monkeypatch.setattr(fe_mod, "fused_linear_act", lambda *a, mult=None: (gates.append(mult), real(*a, mult=mult))[1])
+    got = fused_eps(model, f, y, 3, y_hat)
+    assert torch.equal(got, fused_eps(model, f_rows, y, 3, y_hat))
+    assert gates[0].shape == ((2, b, 16) if k <= fl_mod.SMALL_K else (2, trials * b, 16))
+    assert torch.equal(gates[0], f if k <= fl_mod.SMALL_K else f_rows)
 
 
 WGMMA_SHAPES = [(5, r, 4096, 4096) for r in (1, 20, 160, 161, 1400)] + [(5, 640, 64, 64)]
@@ -376,7 +499,7 @@ def test_fused_linear_act_takes_a_float32_gate_beside_bf16_at_any_k(k):
     x, w, mult = torch.zeros(2, 3, k, dtype=BF16), torch.zeros(2, k, 8, dtype=BF16), torch.zeros(2, 3, 8)
     a = c = torch.zeros(2, 8)
     assert fl_mod._check(x, w, a, c, mult) == (2, 3, k, 8)
-    want = ("small_k", True) if k <= 16 else ("wgmma", True) if k % 8 == 0 else ("mma", False)
+    want = ("small_k", True) if k <= fl_mod.SMALL_K else ("wgmma", True) if k % 8 == 0 else ("mma", False)
     assert fl_mod.plan(BF16, k, 8, True) == want
     with pytest.raises(TypeError, match="mult must be float32 or x's dtype"):
         fl_mod._check(x, w, a, c, mult.half())
@@ -559,3 +682,46 @@ def test_k5b_workspace_is_a_function_of_the_shape(m, r, n, c, flags, total):
     assert l34_workspace_bytes(m, r, n, c) == (flags, total)
     assert flags % 16 == 0 and flags >= 4 * m * p.row_tiles
     assert total - flags == 4 * m * p.col_tiles * r * c
+
+
+def test_float_predictor_with_the_per_image_gate_matches_jax():
+    """The float chain passes lin1 the features a row an image: at B = 3
+    images and 2 trials (distinct gate rows, trial-major rows) the port's
+    ``Predictor.predict`` equals the JAX package's on the same weights and
+    injected draws (DDIM-5 at eta 1), float32 on both sides: probs, PIW and
+    variance within rtol 1e-4 / atol 1e-5 (summation order along the
+    chain, as tests/test_torch_serve.py), the votes equal."""
+    from ladine_tpu.infer import Predictor as JaxPredictor
+    from ladine_tpu.models import SEViTGuidance as JaxGuidance
+    from ladine_tpu.ops import DiffusionSchedule as JaxSchedule
+    from ladine_tpu_torch.infer import Predictor
+    from ladine_tpu_torch.models import SEViTGuidance
+    from ladine_tpu_torch.ops import DiffusionSchedule
+    from ladine_tpu_torch.utils import guidance_from_flax
+    from torch_parity import jax_ensemble_noise
+
+    g_kw = dict(num_classes=2, num_members=3, vit_depth=3, img_size=16, patch_size=8, embed_dim=16, num_heads=2,
+                mlp_hidden_dims=(16, 8, 8))
+    steps, b, trials = 10, 3, 2
+    jg = JaxGuidance(**g_kw)
+    gvars = jax.tree.map(np.asarray, jax.jit(jg.init)(jax.random.PRNGKey(1), jnp.zeros((1, 16, 16, 3))))
+    jm = JaxConditionalModel(data_dim=768, feature_dim=8, hidden_dim=8, y_dim=2, n_steps=steps + 1)
+    stacked = jax_members(jm, 3, 768)
+    guidance = SEViTGuidance(**g_kw, device="cpu")
+    guidance.load_state_dict(guidance_from_flax(gvars))
+    model = ConditionalModel(3, 768, 8, 8, 2, steps + 1, device="cpu")
+    model.load_state_dict(members_from_flax(stacked))
+    kw = dict(temperature=0.2, mc_trials=trials, ddim_steps=5, ddim_eta=1.0)
+    ref = JaxPredictor(guidance=jg, guidance_vars=gvars, model=jm, stacked_vars=stacked,
+                       sched=JaxSchedule.create("linear", steps, 1e-4, 0.02), **kw)
+    ours = Predictor(guidance=guidance, model=model, sched=DiffusionSchedule.create("linear", steps, 1e-4, 0.02,
+                                                                                      device="cpu"),
+                     device="cpu", **kw)
+    images = np.random.default_rng(43).random((b, 16, 16, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(44)
+    noise = jax_ensemble_noise(key, 3, trials, (b, 2), len(ours._tau))
+    want = ref.predict(images, key=key)
+    got = ours.predict(images, noise=j2t(noise))
+    np.testing.assert_array_equal(got["majority_vote"], np.asarray(want["majority_vote"]))
+    for name in ("probs", "piw", "mc_variance"):
+        np.testing.assert_allclose(got[name], np.asarray(want[name]), rtol=1e-4, atol=1e-5, err_msg=name)
