@@ -230,6 +230,41 @@ def _plots(report: dict, log_dir: str) -> None:
         print(f"wrote {pth}", file=sys.stderr)
 
 
+def eval_config(args, cfg, temperature: float):
+    """The ``EvalConfig`` of the evaluation flags over the config's sampler
+    (a ``--suite`` row replaces fields of it)."""
+    from ladine_tpu_torch.infer import EvalConfig
+
+    return EvalConfig(
+        mc_trials=cfg.testing.mc_trials, temperature=temperature, noise_std=args.noise_perturbation,
+        low_resolution=args.low_resolution, brightness=args.brightness, contrast=args.contrast,
+        cover=(args.covered[0], int(args.covered[1])), crop=args.crop, attack_name=args.attack_name,
+        attack_eps=args.epsilon, ddim_steps=cfg.diffusion.ddim_steps, ddim_eta=cfg.diffusion.ddim_eta,
+        skip_type=cfg.diffusion.skip_type, noise_prior=cfg.diffusion.noise_prior, use_int8=args.int8,
+        use_int8_encode=args.int8_encode,
+    )
+
+
+def train_ckpt_weights(runner, args, train_ckpts, eval_cfg):
+    """The members of training checkpoints, stacked, and the guidance
+    (``--guidance_ckpt``/``--vit_ckpt``, else the one the first checkpoint
+    trained against), in the compute dtype's layout; ``eval_cfg`` with the
+    guidance head each stacked member trained against. Returns
+    (stacked, gvars, eval_cfg)."""
+    stacked, g_tree, head_ids = runner.load_members_from_train_ckpts(train_ckpts, use_ema=args.eval_ema,
+                                                                     eval_cast=True)
+    if head_ids is None:
+        head_ids = tuple(range(next(iter(stacked.values())).shape[0]))
+    if tuple(head_ids) != tuple(range(runner.config.diffusion.num_members)):
+        eval_cfg = dataclasses.replace(eval_cfg, head_indices=tuple(head_ids))
+    if args.guidance_ckpt or args.vit_ckpt:
+        gvars = runner.init_guidance(None, args.guidance_ckpt, vit_ckpt=args.vit_ckpt,
+                                     mlp_dir=args.mlp_ckpt_dir, eval_cast=True)
+    else:
+        gvars = {"params": runner.to_eval_vars(g_tree["params"], runner.guidance, eval_cast=True)}
+    return stacked, gvars, eval_cfg
+
+
 def _init_distributed(device: str) -> tuple:
     """Under ``torchrun`` (``WORLD_SIZE`` > 1, no group yet): initialize the
     default process group, ``nccl`` with ``cuda:LOCAL_RANK`` for a card,
@@ -281,7 +316,6 @@ def _main(args, dev) -> int:
     import torch
 
     from ladine_tpu_torch.cli.runner import Runner
-    from ladine_tpu_torch.infer import EvalConfig
 
     log_dir = os.path.join(args.exp, "logs", args.doc)
     runner = Runner(cfg, log_dir=log_dir, demo=args.demo, device=dev)
@@ -301,14 +335,7 @@ def _main(args, dev) -> int:
         the same streams, as the JAX CLI passes one key to each."""
         return torch.Generator().manual_seed(args.seed)
 
-    eval_cfg = EvalConfig(
-        mc_trials=cfg.testing.mc_trials, temperature=runner.temperature, noise_std=args.noise_perturbation,
-        low_resolution=args.low_resolution, brightness=args.brightness, contrast=args.contrast,
-        cover=(args.covered[0], int(args.covered[1])), crop=args.crop, attack_name=args.attack_name,
-        attack_eps=args.epsilon, ddim_steps=cfg.diffusion.ddim_steps, ddim_eta=cfg.diffusion.ddim_eta,
-        skip_type=cfg.diffusion.skip_type, noise_prior=cfg.diffusion.noise_prior, use_int8=args.int8,
-        use_int8_encode=args.int8_encode,
-    )
+    eval_cfg = eval_config(args, cfg, runner.temperature)
 
     if args.eval_guidance:
         random_demo = args.demo and args.guidance_ckpt is None
@@ -384,19 +411,7 @@ def _main(args, dev) -> int:
         train_ckpts = (args.diffusion_ckpt if args.diffusion_ckpt and all(map(_is_train_ckpt, args.diffusion_ckpt))
                        else None)
         if train_ckpts:
-            stacked, g_tree, head_ids = runner.load_members_from_train_ckpts(train_ckpts, use_ema=args.eval_ema,
-                                                                             eval_cast=True)
-            # each stacked member is conditioned on the head it trained against
-            n_stacked = next(iter(stacked.values())).shape[0]
-            if head_ids is None:
-                head_ids = tuple(range(n_stacked))
-            if tuple(head_ids) != tuple(range(cfg.diffusion.num_members)):
-                eval_cfg = dataclasses.replace(eval_cfg, head_indices=tuple(head_ids))
-            if args.guidance_ckpt or args.vit_ckpt:
-                gvars = runner.init_guidance(None, args.guidance_ckpt, vit_ckpt=args.vit_ckpt,
-                                             mlp_dir=args.mlp_ckpt_dir, eval_cast=True)
-            else:
-                gvars = {"params": runner.to_eval_vars(g_tree["params"], runner.guidance, eval_cast=True)}
+            stacked, gvars, eval_cfg = train_ckpt_weights(runner, args, train_ckpts, eval_cfg)
         else:
             if args.eval_ema:
                 print("--eval_ema needs a training checkpoint (diffu_all*); per-member variable checkpoints "

@@ -79,6 +79,23 @@ def test_random_crop_and_resize_with_the_jax_draws(k):
     _close(tcor.random_crop_and_resize(torch.from_numpy(x), k, corners=draws["crop"]), want)
 
 
+@pytest.mark.parametrize("through", ["random_crop_and_resize", "apply_corruptions"])
+def test_crop_row_at_224_pixels_with_the_jax_draws(through):
+    """The evidence run's crop row: a 201-pixel crop of each 224-pixel image
+    resized back (k = 0.1), alone and through the evaluator's call."""
+    x = _images(10, (8, 224, 224, 3))
+    key = jax.random.PRNGKey(7)
+    draws = jax_corruption_draws(key, x.shape, crop=0.1)
+    if through == "random_crop_and_resize":
+        want = jcor.random_crop_and_resize(jnp.asarray(x), 0.1, jax.random.split(key, 3)[2])
+        got = tcor.random_crop_and_resize(torch.from_numpy(x), 0.1, corners=draws["crop"])
+    else:
+        want = jcor.apply_corruptions(jnp.asarray(x), key, crop=0.1)
+        got = tcor.apply_corruptions(torch.from_numpy(x), crop=0.1, draws=draws)
+    assert got.shape == x.shape and len({(int(t), int(l)) for t, l in zip(*draws["crop"])}) > 1
+    _close(got, want)
+
+
 ALL = dict(noise_std=0.05, low_resolution=2, brightness=0.1, contrast=0.8, cover=(0.05, 2), crop=0.1)
 
 

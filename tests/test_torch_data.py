@@ -2,8 +2,7 @@
 package's, on the same files and seeds.
 
 Both are numpy on the host, so batches, shuffles, labels and indices are
-held bit-equal; the one difference is the resize (the port's
-``F.interpolate`` against the JAX package's hand-written bilinear gathers),
+held bit-equal; the resize (the same bilinear gathers on both sides) is
 held to 1e-6 absolute. Files are written into ``tmp_path``: idx (plain and
 gzipped), a medmnist ``pathmnist.npz``, and an ImageFolder tree of PNGs
 (with PIL, which the port imports only to decode).

@@ -304,8 +304,10 @@ def test_fused_eps_takes_the_features_a_row_an_image(k, monkeypatch):
     with torch.no_grad():
         for prm in model.parameters():
             prm.copy_(torch.from_numpy(rng.standard_normal(prm.shape).astype(np.float32)) * 0.3)
-        for name, buf in model.named_buffers():
-            if "running_var" in name:
+        for name, buf in model.named_buffers():  # the constructor leaves them unset (torch.empty)
+            if "running_mean" in name:
+                buf.copy_(torch.from_numpy(rng.standard_normal(buf.shape).astype(np.float32)) * 0.1)
+            elif "running_var" in name:
                 buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
     b, trials = 3, 2
     f = j2t(rng.standard_normal((2, b, 16)).astype(np.float32))
@@ -316,7 +318,8 @@ def test_fused_eps_takes_the_features_a_row_an_image(k, monkeypatch):
     real = fe_mod.fused_linear_act
     monkeypatch.setattr(fe_mod, "fused_linear_act", lambda *a, mult=None: (gates.append(mult), real(*a, mult=mult))[1])
     got = fused_eps(model, f, y, 3, y_hat)
-    assert torch.equal(got, fused_eps(model, f_rows, y, 3, y_hat))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got,fused_eps(model, f_rows, y, 3, y_hat))
     assert gates[0].shape == ((2, b, 16) if k <= fl_mod.SMALL_K else (2, trials * b, 16))
     assert torch.equal(gates[0], f if k <= fl_mod.SMALL_K else f_rows)
 

@@ -18,7 +18,8 @@ against ``scripts/`` (loaded by path).
   ``evidence/torch/`` and refuses truncated JSON.
 * One tiny end-to-end run in process on a cut corpus, then a second call
   that runs no step; ``--real`` on a reference ``.pth`` tree that the
-  port's exporters write, at tiny widths, and again with no step.
+  port's exporters write, at tiny widths, and again with no step;
+  ``crop_chains`` on the run's weights beside a crop row of the suite.
 * ``profile_serving --tiny --device cpu`` prints every key of the JAX
   record, on the JAX script's constants.
 """
@@ -29,6 +30,7 @@ import io
 import json
 import os
 import re
+import shutil
 import signal
 import sys
 
@@ -42,7 +44,8 @@ from PIL import Image
 from ladine_tpu.models import ConditionalModel as JaxConditionalModel
 from ladine_tpu.models import SEViTGuidance as JaxGuidance
 from ladine_tpu_torch.examples import make_synth_medical as synth
-from ladine_tpu_torch.examples import profile_serving, render_results, run_results, sync_evidence
+from ladine_tpu_torch.examples import crop_chains, profile_serving, render_results, run_results, sync_evidence
+from ladine_tpu_torch.examples.run_digits import run_step
 from ladine_tpu_torch.models import ConditionalModel, SEViTGuidance, init_random_
 from ladine_tpu_torch.utils import guidance_from_flax, members_from_flax
 from ladine_tpu_torch.utils.torch_convert import (
@@ -420,6 +423,38 @@ def test_real_flow_on_a_reference_tree(tiny_run, tmp_path):
     calls = []
     run_results.run_real(args, step=lambda *a, **k: calls.append(a))
     assert calls == []
+
+
+def test_crop_chains_give_the_crop_row_image_by_image(tiny_run, tmp_path):
+    """``examples/crop_chains`` on the tiny run's weights, beside the crop
+    row that ``cli.main --suite`` writes for them: its bf16 crop arm has the
+    row's vote accuracy and per-class variances, ``predict``'s variance is
+    its samples', and the clean arm differs from the crop arm."""
+    work = str(tmp_path / "work")
+    shutil.copytree(tiny_run[0], work)
+    exp = os.path.join(work, "exp")
+    temperature = json.load(open(os.path.join(exp, "logs", "calib", "report.json")))["calibrated_temperature"]
+    ckpts = [run_results.best_ckpt(exp, f"member{k}") for k in range(run_results.MEMBERS)]
+    common = ["--temperature", str(temperature), "--config", TINY, "--dataroot", os.path.join(work, "synth_ds"),
+              "--exp", exp, "--diffusion_ckpt", *ckpts]
+    with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(io.StringIO()):
+        run_results.run_suite_rows({"crop": run_results.suite_dict(False)["crop"]}, str(tmp_path / "suite.json"),
+                                   os.path.join(exp, "logs", "suite"), ["--device", "cpu"], common,
+                                   str(tmp_path / "log"), lambda stage, *a, **k: run_step(*a, **k))
+        record = crop_chains.run(work, "cpu")
+    row = json.load(open(os.path.join(exp, "logs", "suite", "report_crop.json")))
+    n = 2 * CUT["testing"]
+    assert record["images"] == n and sorted(record["index"]) == list(range(n))
+    assert set(record["arms"]) == {"bf16_crop", "bf16_clean", "fp32_crop", "fp32_clean", "bf16_crop_interpolate"}
+    crop = record["summary"]["bf16_crop"]
+    assert crop["mv_accuracy"] == row["majority_vote_accuracy"]
+    for key in ("mc_variance_correct", "mc_variance_incorrect"):
+        np.testing.assert_allclose(crop[key], row[key], rtol=1e-6, atol=0)
+    assert all(s["predict_vs_samples_max_diff"] == 0 for s in record["summary"].values())
+    assert record["arms"]["bf16_crop"]["var"] != record["arms"]["bf16_clean"]["var"]
+    assert all(len(a["member_var"]) == n and len(a["member_var"][0]) == 5 for a in record["arms"].values())
+    assert [o["image"] for o in record["outliers"]] == [
+        record["index"][i] for i in range(n) if any(a["var"][i] > 1.0 for a in record["arms"].values())]
 
 
 # ------------------------------------------------------------------ profile_serving
